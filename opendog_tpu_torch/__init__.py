@@ -1,10 +1,12 @@
 """opendog_tpu_torch — the PyTorch / CUDA port of ``opendog_tpu``.
 
-A second package beside the JAX one, which stays the reference.  This
-slice carries the Go1 flat-ground MPPI trot loop: the MJCF models
-(:mod:`.physics`, :mod:`.assets`), the fused physics substep as a CUDA
-kernel with its plain PyTorch version (:mod:`.ops`, ``csrc/``) and the
-MPPI / MPC solvers with their costs (:mod:`.solvers`).  Entry points run
+A second package beside the JAX one, which stays the reference.  It
+carries the Go1 flat-ground MPPI trot loop, OpenDOG terrain MPC and
+payload-aware MPPI: the MJCF models, kinematics and terrain
+(:mod:`.physics`, :mod:`.assets`), the fused physics substep as CUDA
+kernels in each of its modes with their plain PyTorch version
+(:mod:`.ops`, ``csrc/``) and the MPPI / MPC solvers with their costs
+(:mod:`.solvers`).  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -1,8 +1,14 @@
-// One flat-ground physics substep for one rollout, table-driven.
+// One physics substep for one rollout, table-driven.
 //
-// Replaces the math of opendog_tpu/ops/pallas_step.py::build_pallas_substep
-// in its flat mode (with_plane=False, with_payload=False), whose body is
-// opendog_tpu/ops/scalar_core.py::build_substep plus _arrow_solve_scalar.
+// Replaces the math of opendog_tpu/ops/pallas_step.py::build_pallas_substep,
+// whose body is opendog_tpu/ops/scalar_core.py::build_substep plus
+// _arrow_solve_scalar, in each of its modes.  The substep is a template on
+// its ground, PLANE (SC_PLANE_FLAT: the plane z = 0; SC_PLANE_LANE: one
+// plane {n.x = d} per rollout; SC_PLANE_GEOM: one plane per collision geom
+// and rollout), and on PAYLOAD (a point mass at the trunk origin per
+// rollout).  The flat instantiation keeps the z = 0 contact arithmetic of
+// the flat kernel; the plane instantiations use the general-normal contact
+// and the (I - nn^T) friction form, as the plain version does.
 // The TPU kernel bakes every model constant into a straight-line graph of
 // ~49k vector operations; here the loops over bodies, dofs, geoms and
 // arrow pairs run at run time over the tables of a SubstepModel, built once
@@ -39,6 +45,11 @@
 #define SC_NCH_MAX 3       // dofs per chain
 #define SC_NPAIR_MAX 171   // SC_NV_MAX * (SC_NV_MAX + 1) / 2
 #define SC_MAGIC 0x53425331
+
+// The ground of a substep instantiation (template parameter PLANE).
+#define SC_PLANE_FLAT 0  // the plane z = 0 (kernels K1, K2)
+#define SC_PLANE_LANE 1  // one plane (nx, ny, nz, d) per rollout (K3)
+#define SC_PLANE_GEOM 2  // one plane per collision geom and rollout (K4)
 
 // The table layout, one entry per line: INT / FLT for a scalar, INTS / FLTS
 // for a flat array and its length.  The Python wrapper reads this list to
@@ -188,12 +199,25 @@ SC_HD void sc_inertia_apply(const float* A, const float* c, float m,
 
 // ---------------------------------------------------------------------------
 // the substep: advances qpos (nq) and qvel (nv) of one rollout in place
+//
+// plane: for SC_PLANE_LANE the rollout's (nx, ny, nz, d) at plane[r * stride];
+// for SC_PLANE_GEOM row r = 4 g + c of geom g at plane[r * stride], read in
+// the contact loop (the kernel passes column k of the (rows, K) input, so
+// the threads of a warp read neighbouring addresses); unused when flat.
+// payload: the rollout's point mass [kg] at the trunk origin, when PAYLOAD.
 // ---------------------------------------------------------------------------
 
+template <int PLANE, bool PAYLOAD>
 SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
-                      const float* ctrl) {
+                      const float* ctrl, const float* plane, int stride,
+                      float payload) {
   const int nb = m.nb, nv = m.nv;
   const float dt = m.dt;
+  float lane_n[3] = {0.0f, 0.0f, 1.0f}, lane_d = 0.0f;
+  if (PLANE == SC_PLANE_LANE) {
+    for (int k = 0; k < 3; ++k) lane_n[k] = plane[k * stride];
+    lane_d = plane[3 * stride];
+  }
 
   // ---------------- FK ----------------
   float xpos[SC_NB_MAX][3], xquat[SC_NB_MAX][4], R[SC_NB_MAX][9];
@@ -291,6 +315,18 @@ SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
     IA[b][4] = Iw[5] - mb * cy * cz;
     IA[b][5] = Iw[8] + mb * (cx * cx + cy * cy);
   }
+  // per-rollout payload: a point mass rigidly attached at the trunk origin.
+  // The common origin is the trunk position, so the point sits at r = 0:
+  // the A block gains nothing, the trunk's mass grows and its com shrinks
+  // toward the origin (m' c' = m c).
+  float m0 = m.body_mass[0];
+  if (PAYLOAD) {
+    const float m_tot = payload + m0;
+    const float scale = m0 / m_tot;
+    for (int k = 0; k < 3; ++k) Ic[0][k] = Ic[0][k] * scale;
+    m0 = m_tot;
+  }
+#define SC_MASS(b) ((PAYLOAD && (b) == 0) ? m0 : m.body_mass[(b)])
 
   // ---------------- body velocities ----------------
   float V[SC_NB_MAX][6];
@@ -326,8 +362,8 @@ SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
   }
   for (int b = 0; b < nb; ++b) {
     float Ia[6], Iv[6], t1[3], t2[3];
-    sc_inertia_apply(IA[b], Ic[b], m.body_mass[b], ab[b], Ia);
-    sc_inertia_apply(IA[b], Ic[b], m.body_mass[b], V[b], Iv);
+    sc_inertia_apply(IA[b], Ic[b], SC_MASS(b), ab[b], Ia);
+    sc_inertia_apply(IA[b], Ic[b], SC_MASS(b), V[b], Iv);
     // force cross: (w x tau + vo x frc, w x frc)
     sc_cross(V[b], Iv, t1);
     sc_cross(V[b] + 3, Iv + 3, t2);
@@ -350,13 +386,14 @@ SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
   // composite inertias (A sym6, B 3x3, m), reusing IA as the A block
   float CB[SC_NB_MAX][9], Cm[SC_NB_MAX];
   for (int b = 0; b < nb; ++b) {
-    const float mb = m.body_mass[b];
+    const float mb = SC_MASS(b);
     const float cx = Ic[b][0], cy = Ic[b][1], cz = Ic[b][2];
     CB[b][0] = 0.0f;            CB[b][1] = (0.0f - cz) * mb; CB[b][2] = cy * mb;
     CB[b][3] = cz * mb;         CB[b][4] = 0.0f;             CB[b][5] = (0.0f - cx) * mb;
     CB[b][6] = (0.0f - cy) * mb; CB[b][7] = cx * mb;         CB[b][8] = 0.0f;
     Cm[b] = mb;
   }
+#undef SC_MASS
   for (int b = nb - 1; b >= 1; --b) {
     const int p = m.body_parent[b];
     for (int i = 0; i < 6; ++i) IA[p][i] = IA[p][i] + IA[b][i];
@@ -405,13 +442,63 @@ SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
     ddiag[j] = dd;
   }
 
-  // ---------------- contact: spheres vs the plane z = 0 ----------------
+  // ---------------- contact: spheres vs the ground ----------------
   for (int g = 0; g < m.ng; ++g) {
     const int b = m.geom_body[g];
     const float rad = m.geom_radius[g];
     float center[3], t[3];
     sc_apply(R[b], m.geom_pos + 3 * g, t);
     for (int k = 0; k < 3; ++k) center[k] = xpos[b][k] + t[k];
+    const int nd = m.body_ndof[b];
+    const int* dofs = m.body_dofs + b * SC_NV_MAX;
+    float J[SC_NV_MAX][3];  // J rows of the ancestor dofs: S_lin + S_ang x r
+    if (PLANE != SC_PLANE_FLAT) {
+      // plane {n.x = d}: the lane's, or this geom's (strided global loads)
+      float n[3], d;
+      if (PLANE == SC_PLANE_GEOM) {
+        const float* pg = plane + (4 * g) * stride;
+        for (int k = 0; k < 3; ++k) n[k] = pg[k * stride];
+        d = pg[3 * stride];
+      } else {
+        for (int k = 0; k < 3; ++k) n[k] = lane_n[k];
+        d = lane_d;
+      }
+      const float phi = (center[0] * n[0] + center[1] * n[1] + center[2] * n[2]) - d - rad;
+      const float pen = sc_min(sc_max(0.0f - phi, 0.0f), 0.05f);
+      const float active = phi < 0.0f ? 1.0f : 0.0f;
+      const float fn = sc_min(m.geom_k[g] * pen, 1e4f);
+      float r[3];  // contact point (sphere surface along -n) from the origin
+      for (int k = 0; k < 3; ++k) r[k] = (center[k] - rad * n[k]) - origin[k];
+      float vpt[3];
+      sc_cross(V[b], r, t);
+      for (int k = 0; k < 3; ++k) vpt[k] = V[b][3 + k] + t[k];
+      // tangential speed: |v - (v.n) n|
+      const float vn = vpt[0] * n[0] + vpt[1] * n[1] + vpt[2] * n[2];
+      const float vsq = vpt[0] * vpt[0] + vpt[1] * vpt[1] + vpt[2] * vpt[2];
+      const float vt = sqrtf(sc_max(vsq - vn * vn, 0.0f) + 1e-12f);
+      const float kappa = m.geom_mu[g] * fn / sc_max(vt, m.fric_eps);
+      const float dn = m.geom_d[g] * active;
+      const float kap = kappa * active;
+      float Jn[SC_NV_MAX];
+      for (int e = 0; e < nd; ++e) {
+        const int j = dofs[e];
+        sc_cross(S[j], r, t);
+        for (int k = 0; k < 3; ++k) J[e][k] = S[j][3 + k] + t[k];
+        Jn[e] = J[e][0] * n[0] + J[e][1] * n[1] + J[e][2] * n[2];
+        qfrc[j] = qfrc[j] + Jn[e] * (fn * active);
+      }
+      // D += dn (J.n)(J.n)^T + kap (J J^T - (J.n)(J.n)^T)
+      for (int d1 = 0; d1 < nd; ++d1) {
+        for (int d2 = d1; d2 < nd; ++d2) {
+          const float jj = J[d1][0] * J[d2][0] + J[d1][1] * J[d2][1] + J[d1][2] * J[d2][2];
+          const float val = dn * Jn[d1] * Jn[d2] + kap * (jj - Jn[d1] * Jn[d2]);
+          const int p = m.pair_index[dofs[d1] * SC_NV_MAX + dofs[d2]];
+          D[p] = D[p] + val;
+        }
+      }
+      continue;
+    }
+    // the plane z = 0
     const float phi = center[2] - 0.0f - rad;
     const float pen = sc_min(sc_max(0.0f - phi, 0.0f), 0.05f);
     const float active = phi < 0.0f ? 1.0f : 0.0f;
@@ -426,9 +513,6 @@ SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
     const float kappa = m.geom_mu[g] * fn / sc_max(vt, m.fric_eps);
     const float dn = m.geom_d[g] * active;
     const float kap = kappa * active;
-    const int nd = m.body_ndof[b];
-    const int* dofs = m.body_dofs + b * SC_NV_MAX;
-    float J[SC_NV_MAX][3];  // J rows of the ancestor dofs: S_lin + S_ang x r
     for (int d = 0; d < nd; ++d) {
       const int j = dofs[d];
       sc_cross(S[j], r, t);

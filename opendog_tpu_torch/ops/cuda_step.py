@@ -1,16 +1,18 @@
-"""The fused physics substep on the card: wrapper of CUDA kernel K1.
+"""The fused physics substep on the card: wrapper of CUDA kernels K1-K4.
 
 Port of ``opendog_tpu/ops/pallas_step.py`` (``build_pallas_substep``, the
-``pl.pallas_call`` at line 115) in its flat-ground mode.  The kernel
-(``csrc/substep_kernel.cu`` around ``csrc/substep_core.cuh``) runs one
-thread per rollout over a table of model constants built here; see the note
-at the top of the ``.cu`` file for its design and what bounds it.
+``pl.pallas_call`` at line 115) in each of its modes: flat ground (K1), a
+per-lane payload (K2), a per-lane contact plane (K3), per-geom planes (K4),
+and plane + payload together.  The kernels (``csrc/substep_kernel.cu``
+around ``csrc/substep_core.cuh``) run one thread per rollout over a table of
+model constants built here; see the note at the top of the ``.cu`` file for
+their design and what bounds them.
 
 Layout as in the JAX package: ``qpos (nq, K)``, ``qvel (nv, K)``,
-``ctrl (nu, K)``, float32, contiguous.  A step bound to a CUDA device
-launches the kernel on the current stream; a step bound to the CPU runs the
-plain PyTorch version (:mod:`.scalar_core`).  There is no fallback from one
-to the other.
+``ctrl (nu, K)``, ``plane (4, K)`` or ``(4 * ngeom, K)``, ``payload (1, K)``,
+float32, contiguous.  A step bound to a CUDA device launches its kernel on
+the current stream; a step bound to the CPU runs the plain PyTorch version
+(:mod:`.scalar_core`).  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -29,16 +31,41 @@ from ..physics import dynamics as dyn
 from ..physics.model import JNT_FREE, JNT_HINGE, JNT_NONE, Model
 from . import build, scalar_core
 
-KERNEL_NAME = "substep_flat"
+# The kernel of each mode (with_plane, with_payload), named as its entry
+# point in csrc/substep_kernel.cu.  Per-geom planes with a payload run on no
+# path and are not instantiated.
+KERNEL_NAMES = {
+    (False, False): "substep_flat",           # K1
+    (False, True): "substep_payload",         # K2
+    (True, False): "substep_plane",           # K3
+    ("per_geom", False): "substep_pergeom",   # K4
+    (True, True): "substep_plane_payload",    # K2 + K3
+}
+_PLANE_CODE = {False: 0, True: 1, "per_geom": 2}  # SC_PLANE_* of the header
 
-# Launches of the kernel, keyed by shape ("substep_flat K=256 x2"): the
-# wrapper adds one where it launches the kernel and nowhere else.  Read and
-# reset by whoever needs to show that a run went through the kernel.
+# Launches of the kernels, keyed by kernel and shape
+# ("substep_pergeom K=256 x2"): the wrapper adds one where it launches a
+# kernel and nowhere else.  Read and reset by whoever needs to show that a
+# run went through the kernels.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
-def launch_key(K: int, n_substeps: int) -> str:
-    return f"{KERNEL_NAME} K={K} x{n_substeps}"
+def kernel_name(with_plane=False, with_payload: bool = False) -> str:
+    """The kernel of a mode; raises for a mode that has none."""
+    if with_plane not in scalar_core.PLANE_MODES:
+        raise ValueError(f"with_plane must be one of "
+                         f"{scalar_core.PLANE_MODES}, got {with_plane!r}")
+    name = KERNEL_NAMES.get((with_plane, bool(with_payload)))
+    if name is None:
+        raise ValueError(f"no substep kernel for with_plane={with_plane!r} "
+                         f"with with_payload={with_payload}: per-geom planes "
+                         "with a payload are not instantiated")
+    return name
+
+
+def launch_key(K: int, n_substeps: int, with_plane=False,
+               with_payload: bool = False) -> str:
+    return f"{kernel_name(with_plane, with_payload)} K={K} x{n_substeps}"
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +211,8 @@ def cuda_library() -> Tuple[ctypes.CDLL, "build.BuiltLibrary"]:
     lib = ctypes.CDLL(built.path)
     lib.substep_model_size.argtypes = []
     lib.substep_model_size.restype = ctypes.c_int
-    lib.substep_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.substep_launch.restype = ctypes.c_int
     if lib.substep_model_size() != ctypes.sizeof(table_layout()[1]):
         raise RuntimeError("SubstepModel layout differs between the CUDA "
@@ -198,32 +225,43 @@ def cuda_library() -> Tuple[ctypes.CDLL, "build.BuiltLibrary"]:
 # ---------------------------------------------------------------------------
 
 
-def build_plain_substep(model: Model, dt: float,
-                        n_substeps: int = 1) -> Callable:
-    """The plain PyTorch version of the kernel, on tensors of any device:
-    ``step(qpos (nq,K), qvel (nv,K), ctrl (nu,K)) -> (qpos', qvel')``."""
-    sub = scalar_core.build_substep(model, dt)
+def build_plain_substep(model: Model, dt: float, n_substeps: int = 1,
+                        with_plane=False,
+                        with_payload: bool = False) -> Callable:
+    """The plain PyTorch version of the kernels, on tensors of any device:
+    ``step(qpos (nq,K), qvel (nv,K), ctrl (nu,K), plane=None, payload=None)
+    -> (qpos', qvel')``."""
+    sub = scalar_core.build_substep(model, dt, with_plane, with_payload)
 
-    def step(qpos, qvel, ctrl):
+    def step(qpos, qvel, ctrl, plane=None, payload=None):
         qp, qv, ct = qpos.unbind(0), qvel.unbind(0), ctrl.unbind(0)
+        pl = plane.unbind(0) if plane is not None else None
+        py = payload[0] if payload is not None else None
         for _ in range(n_substeps):
-            qp, qv = sub(qp, qv, ct)
+            qp, qv = sub(qp, qv, ct, pl, py)
         return torch.stack(qp), torch.stack(qv)
 
     return step
 
 
 class CudaSubstep:
-    """``step(qpos (nq,K), qvel (nv,K), ctrl (nu,K)) -> (qpos', qvel')``
-    running ``n_substeps`` flat-ground substeps of timestep ``dt`` per
-    call, on the device it was built for."""
+    """``step(qpos (nq,K), qvel (nv,K), ctrl (nu,K), plane=None,
+    payload=None) -> (qpos', qvel')`` running ``n_substeps`` substeps of
+    timestep ``dt`` per call in one mode, on the device it was built for.
+    ``plane`` is ``(4, K)`` with ``with_plane=True``, ``(4 * ngeom, K)``
+    with ``with_plane="per_geom"``, and must be None otherwise; ``payload``
+    is ``(1, K)`` with ``with_payload=True`` and None otherwise."""
 
-    def __init__(self, model: Model, dt: float, n_substeps: int, device):
+    def __init__(self, model: Model, dt: float, n_substeps: int, device,
+                 with_plane=False, with_payload: bool = False):
         if n_substeps < 1:
             raise ValueError("n_substeps must be >= 1")
+        self.name = kernel_name(with_plane, with_payload)
+        self.with_plane, self.with_payload = with_plane, bool(with_payload)
         self.device = resolve_device(device)
         self.dt, self.n_substeps = float(dt), int(n_substeps)
         self.nq, self.nv, self.nu = model.nq, model.nv, model.nu
+        self.plane_rows = scalar_core.plane_rows(model, with_plane)
         table = substep_table(model, dt)
         if self.device.type == "cuda":
             self._lib, _ = cuda_library()
@@ -232,14 +270,28 @@ class CudaSubstep:
                 self.device)
             self._plain = None
         elif self.device.type == "cpu":
-            self._plain = build_plain_substep(model, dt, n_substeps)
+            self._plain = build_plain_substep(model, dt, n_substeps,
+                                              with_plane, with_payload)
         else:
             raise ValueError(f"unsupported device {self.device}")
 
-    def _check(self, qpos, qvel, ctrl) -> int:
+    def _check(self, qpos, qvel, ctrl, plane, payload) -> int:
         K = qpos.shape[-1] if qpos.dim() == 2 else -1
-        for name, x, rows in (("qpos", qpos, self.nq), ("qvel", qvel, self.nv),
-                              ("ctrl", ctrl, self.nu)):
+        arrays = [("qpos", qpos, self.nq), ("qvel", qvel, self.nv),
+                  ("ctrl", ctrl, self.nu)]
+        for name, x, rows, wanted in (("plane", plane, self.plane_rows,
+                                       bool(self.with_plane)),
+                                      ("payload", payload, 1,
+                                       self.with_payload)):
+            if wanted and x is None:
+                raise ValueError(f"{self.name} needs a {name} of shape "
+                                 f"({rows}, K)")
+            if not wanted and x is not None:
+                raise ValueError(f"{self.name} takes no {name}: build the "
+                                 "step with its mode to pass one")
+            if wanted:
+                arrays.append((name, x, rows))
+        for name, x, rows in arrays:
             if x.device != self.device:
                 raise ValueError(f"{name} is on {x.device}, the step on "
                                  f"{self.device}")
@@ -252,29 +304,37 @@ class CudaSubstep:
                 raise ValueError(f"{name} must be contiguous")
         return K
 
-    def __call__(self, qpos, qvel, ctrl):
-        K = self._check(qpos, qvel, ctrl)
+    def __call__(self, qpos, qvel, ctrl, plane=None, payload=None):
+        K = self._check(qpos, qvel, ctrl, plane, payload)
         if self._plain is not None:
-            return self._plain(qpos, qvel, ctrl)
+            return self._plain(qpos, qvel, ctrl, plane, payload)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         stream = torch.cuda.current_stream(self.device).cuda_stream
+        ptr = lambda x: None if x is None else x.data_ptr()
         rc = self._lib.substep_launch(
             self._table.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
-            ctrl.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
-            K, self.n_substeps, stream)
+            ctrl.data_ptr(), ptr(plane), ptr(payload), qpos_out.data_ptr(),
+            qvel_out.data_ptr(), K, self.n_substeps,
+            _PLANE_CODE[self.with_plane], int(self.with_payload), stream)
         if rc != 0:
-            raise RuntimeError(f"substep kernel launch failed: CUDA error {rc}")
-        LAUNCHES[launch_key(K, self.n_substeps)] += 1
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {rc}")
+        LAUNCHES[launch_key(K, self.n_substeps, self.with_plane,
+                            self.with_payload)] += 1
         return qpos_out, qvel_out
 
 
 def build_cuda_substep(model: Model, dt: float, n_substeps: int = 1,
-                       device=None) -> CudaSubstep:
+                       device=None, with_plane=False,
+                       with_payload: bool = False) -> CudaSubstep:
     """Build the substep step of ``model`` at timestep ``dt`` on ``device``
-    (CUDA unless the caller names another).  On CUDA this builds the kernel
+    (CUDA unless the caller names another), in the mode given by
+    ``with_plane`` (False, True or "per_geom") and ``with_payload``, as
+    ``build_pallas_substep`` takes them.  On CUDA this builds the kernel
     library from ``csrc/`` at first use; ``nvcc`` must exist."""
-    return CudaSubstep(model, dt, n_substeps, device)
+    return CudaSubstep(model, dt, n_substeps, device, with_plane,
+                       with_payload)
 
 
 def rows_from_batch(arr: torch.Tensor) -> torch.Tensor:

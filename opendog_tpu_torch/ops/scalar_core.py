@@ -1,7 +1,6 @@
-"""Plain PyTorch version of the fused physics substep (kernel K1).
+"""Plain PyTorch version of the fused physics substep (kernels K1-K4).
 
-Port of ``opendog_tpu/ops/scalar_core.py`` in its flat-ground mode: the
-whole Featherstone substep written as straight-line arithmetic over *lane
+Port of ``opendog_tpu/ops/scalar_core.py``: the whole Featherstone substep written as straight-line arithmetic over *lane
 vectors* — every physical scalar a ``(K,)`` tensor with the rollout batch
 along it, every 3-vector a Python tuple of three such tensors, and every
 model constant a baked Python float, so that multiplications by 0 / ±1 in
@@ -13,8 +12,13 @@ This is what the CUDA kernel (``csrc/substep_core.cuh``) is held against:
 compares the kernel with it on the card.  It runs on any device.
 
 Scope: floating-base quadrupeds with the block-arrow structure (free base +
-serial leg chains), the plane z=0 as ground, position-servo actuators.  The
-per-lane contact plane and payload modes (ROADMAP K2-K4) are not ported.
+serial leg chains), position-servo actuators, and one of three grounds: the
+plane z=0 (flat, K1), one contact plane per lane (``with_plane=True``, K3)
+or one plane per collision geom and lane (``with_plane="per_geom"``, K4);
+optionally a per-lane point mass at the trunk origin (``with_payload``,
+K2).  The flat mode keeps its own contact arithmetic, operation for
+operation the form the JAX package keeps bit-identical to its validated
+flat kernel.
 """
 from __future__ import annotations
 
@@ -211,16 +215,40 @@ def _where(c, a, b):
     return torch.where(c, a, b)
 
 
+def _rdiv(c: float, x):
+    """c / x rounded once, as the JAX package and the kernels divide
+    (PyTorch's ``float / tensor`` rounds twice: a reciprocal, then a
+    product)."""
+    return torch.div(c, x)
+
+
+PLANE_MODES = (False, True, "per_geom")
+
+
+def plane_rows(model: Model, with_plane) -> int:
+    """Rows of the plane input: 0 (flat), 4 (one plane per lane) or
+    4 * ngeom (one plane per geom, rows 4g..4g+3 = nx, ny, nz, d)."""
+    if with_plane not in PLANE_MODES:
+        raise ValueError(f"with_plane must be one of {PLANE_MODES}, got "
+                         f"{with_plane!r}")
+    return (4 * model.ngeom if with_plane == "per_geom"
+            else 4 if with_plane else 0)
+
+
 def build_substep(model: Model, dt: float,
-                  with_plane: bool = False,
+                  with_plane=False,
                   with_payload: bool = False) -> Callable:
-    """Build ``substep(qpos_rows, qvel_rows, ctrl_rows) -> (qpos', qvel')``
-    operating on tuples of lane vectors (``(K,)`` tensors).  All model
-    constants are baked.  Flat ground (the plane z=0) only."""
-    if with_plane or with_payload:
-        raise NotImplementedError(
-            "the per-lane contact plane and payload modes of the substep "
-            "are not ported yet (ROADMAP K2-K4)")
+    """Build ``substep(qpos_rows, qvel_rows, ctrl_rows[, plane_rows,
+    payload_row]) -> (qpos', qvel')`` operating on tuples of lane vectors
+    (``(K,)`` tensors).  All model constants are baked.
+
+    Ground is the plane z=0 by default.  With ``with_plane=True`` the
+    substep takes ``plane = (nx, ny, nz, d)`` lane vectors: a per-lane
+    contact plane {x : n.x = d} (n unit).  With ``with_plane="per_geom"``
+    it takes ``4 * ngeom`` lane vectors, rows ``4g..4g+3`` the plane of
+    geom g.  With ``with_payload=True`` it takes ``payload``, a lane vector
+    of point masses [kg] rigidly attached at the trunk origin."""
+    plane_rows(model, with_plane)
     structure = dyn._arrow_structure(model)
     if structure is None:
         raise ValueError("scalar core needs the quadruped block-arrow "
@@ -273,9 +301,19 @@ def build_substep(model: Model, dt: float,
 
     pairs = arrow_pairs(model)
 
-    def substep(qpos: Sequence, qvel: Sequence, ctrl: Sequence):
+    def substep(qpos: Sequence, qvel: Sequence, ctrl: Sequence,
+                plane: Sequence = None, payload=None):
         zero = qpos[0] * 0.0
         one = zero + 1.0
+        per_geom = with_plane == "per_geom"
+        if per_geom:
+            pn, pd = None, None    # resolved per geom in the contact loop
+        elif with_plane:
+            pn = (plane[0], plane[1], plane[2])
+            pd = plane[3]
+        else:
+            pn = (0.0, 0.0, 1.0)   # python floats: terms fold
+            pd = 0.0
 
         # ---------------- FK ----------------
         xpos: List = [None] * nb
@@ -367,6 +405,17 @@ def build_substep(model: Model, dt: float,
                 I_w[1][2] - m * cy * cz,
                 I_w[2][2] + m * (cx * cx + cy * cy),
             )
+            if b == 0 and with_payload:
+                # per-lane payload: a point mass rigidly attached at the
+                # trunk origin.  The common origin is the trunk position,
+                # so the point sits at r=0: A6 gains nothing, the mass
+                # grows and the combined com shrinks toward the origin
+                # (m' * com' = m * com).
+                m_tot = payload + m
+                scale = _rdiv(m, m_tot)
+                com = (com[0] * scale, com[1] * scale, com[2] * scale)
+                I_O[b] = (A6, com, m_tot)
+                continue
             I_O[b] = (A6, com, m)
 
         # ---------------- velocities ----------------
@@ -452,9 +501,8 @@ def build_substep(model: Model, dt: float,
             qfrc[j] = qfrc[j] + tau
         d_diag = [None] * nv
         for j in range(nv):
-            dd = float(dof_damping[j]) + float(dof_frictionloss[j]) / _max(
-                torch.abs(qvel[j]), 0.05
-            )
+            dd = float(dof_damping[j]) + _rdiv(
+                float(dof_frictionloss[j]), _max(torch.abs(qvel[j]), 0.05))
             if dof_limited[j] > 0:
                 qj = qpos[hinge_of_dof[j][1]]
                 lo, hi = float(dof_range[j][0]), float(dof_range[j][1])
@@ -464,23 +512,25 @@ def build_substep(model: Model, dt: float,
                 dd = dd + lim_d * _where((below > 0) | (above > 0), one, zero)
             d_diag[j] = dd
 
-        # ---------------- contact (plane z=0) ----------------
+        # ---------------- contact ----------------
         Dent = {}
 
         def dent_add(i, j, val):
             key = (i, j) if i <= j else (j, i)
             Dent[key] = Dent.get(key, zero) + val
 
-        png, pdg = (0.0, 0.0, 1.0), 0.0  # python floats: terms fold
-
         def pdot(v, n):
-            """v . n with n's zero terms skipped and unit terms unscaled
-            when the function is built."""
+            """v . n; where n's components are Python floats (the plane
+            z=0) zero terms are skipped and unit terms unscaled when the
+            function is built."""
             acc = None
             for vi, ni in zip(v, n):
-                if ni == 0.0:
-                    continue
-                term = vi if ni == 1.0 else vi * ni
+                if isinstance(ni, float):
+                    if ni == 0.0:
+                        continue
+                    term = vi if ni == 1.0 else vi * ni
+                else:
+                    term = vi * ni
                 acc = term if acc is None else acc + term
             return zero if acc is None else acc
 
@@ -488,14 +538,22 @@ def build_substep(model: Model, dt: float,
             """v - s*n with the same constant folding."""
             out = []
             for vi, ni in zip(v, n):
-                if ni == 0.0:
-                    out.append(vi)
-                    continue
-                out.append(vi - s if ni == 1.0 else vi - s * ni)
+                if isinstance(ni, float):
+                    if ni == 0.0:
+                        out.append(vi)
+                        continue
+                    out.append(vi - s if ni == 1.0 else vi - s * ni)
+                else:
+                    out.append(vi - s * ni)
             return tuple(out)
 
         for g in range(model.ngeom):
             b = int(geom_body[g])
+            if per_geom:
+                png = (plane[4 * g], plane[4 * g + 1], plane[4 * g + 2])
+                pdg = plane[4 * g + 3]
+            else:
+                png, pdg = pn, pd
             center = v_add(
                 xpos[b], m3_apply(Rb[b], tuple(float(v) for v in geom_pos[g]))
             )
@@ -508,8 +566,13 @@ def build_substep(model: Model, dt: float,
             r = v_sub(pt, origin)
             w, vo = V[b]
             vpt = v_add(vo, v_cross(w, r))
-            # flat ground: the tangential speed is the xy speed
-            vt_norm = _sqrt(vpt[0] * vpt[0] + vpt[1] * vpt[1] + 1e-12)
+            if with_plane:
+                vn = pdot(vpt, png)
+                vsq = (vpt[0] * vpt[0] + vpt[1] * vpt[1]
+                       + vpt[2] * vpt[2])
+                vt_norm = _sqrt(_max(vsq - vn * vn, 0.0) + 1e-12)
+            else:  # flat ground: the tangential speed is the xy speed
+                vt_norm = _sqrt(vpt[0] * vpt[0] + vpt[1] * vpt[1] + 1e-12)
             kappa = float(geom_mu[g]) * fn / _max(vt_norm, fric_eps)
             dn = float(geom_d[g]) * active
             kap = kappa * active
@@ -524,13 +587,20 @@ def build_substep(model: Model, dt: float,
             # qfrc += J^T (fn * n)
             for j in dofs:
                 qfrc[j] = qfrc[j] + Jn[j] * (fn * active)
-            # D += dn Jz Jz^T + kap (Jx Jx^T + Jy Jy^T): normal damping plus
-            # tangential friction damping on the ground plane
+            # D += dn (J.n)(J.n)^T + kap (J J^T - (J.n)(J.n)^T): normal
+            # damping plus tangential friction damping on the (I - nn^T)
+            # plane; on flat ground Jz Jz^T and Jx Jx^T + Jy Jy^T
             for ii, j1 in enumerate(dofs):
                 for j2 in dofs[ii:]:
-                    val = (dn * Jr[j1][2] * Jr[j2][2]
-                           + kap * (Jr[j1][0] * Jr[j2][0]
-                                    + Jr[j1][1] * Jr[j2][1]))
+                    if with_plane:
+                        jj = (Jr[j1][0] * Jr[j2][0] + Jr[j1][1] * Jr[j2][1]
+                              + Jr[j1][2] * Jr[j2][2])
+                        val = (dn * Jn[j1] * Jn[j2]
+                               + kap * (jj - Jn[j1] * Jn[j2]))
+                    else:
+                        val = (dn * Jr[j1][2] * Jr[j2][2]
+                               + kap * (Jr[j1][0] * Jr[j2][0]
+                                        + Jr[j1][1] * Jr[j2][1]))
                     dent_add(j1, j2, val)
 
         # ---------------- assemble A = M + dt (D + diag) and solve -------
@@ -718,12 +788,13 @@ _FREE_OPS = {"clone", "copy_", "detach", "alias", "view", "expand",
              "_to_copy", "scalar_tensor", "stack", "unbind", "as_strided"}
 
 
-def count_substep_ops(model: Model, dt: float) -> int:
-    """Arithmetic operations of one flat substep for one rollout: the plain
-    version is run once on a single lane and every elementwise operation
-    it dispatches is counted (transcendentals weighted as in
-    ``opendog_tpu/utils/profiling.py``).  The count does not depend on the
-    data: both sides of every ``where`` are evaluated."""
+def count_substep_ops(model: Model, dt: float, with_plane=False,
+                      with_payload: bool = False) -> int:
+    """Arithmetic operations of one substep for one rollout in the given
+    mode: the plain version is run once on a single lane and every
+    elementwise operation it dispatches is counted (transcendentals
+    weighted as in ``opendog_tpu/utils/profiling.py``).  The count does not
+    depend on the data: both sides of every ``where`` are evaluated."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class _Count(TorchDispatchMode):
@@ -738,10 +809,13 @@ def count_substep_ops(model: Model, dt: float) -> int:
                 self.ops += _OP_WEIGHTS.get(name, 1) * out.numel()
             return out
 
-    sub = build_substep(model.to("cpu"), dt)
+    sub = build_substep(model.to("cpu"), dt, with_plane, with_payload)
     qpos = model.key_qpos[0].detach().cpu().reshape(-1, 1)
     rows = lambda n: tuple(torch.zeros(n, 1)[i] for i in range(n))
+    n_plane = plane_rows(model, with_plane)
+    plane = rows(n_plane) if n_plane else None
+    payload = torch.zeros(1) if with_payload else None
     with _Count() as counter:
         sub(tuple(qpos[i] for i in range(model.nq)), rows(model.nv),
-            rows(model.nu))
+            rows(model.nu), plane, payload)
     return counter.ops

@@ -1,8 +1,9 @@
 import torch
 
-from .model import JNT_FREE, JNT_HINGE, JNT_NONE, Model, State  # noqa: F401
+from .model import (JNT_FREE, JNT_HINGE, JNT_NONE, Model, State,  # noqa: F401
+                    Terrain, terrain_from_numpy)
 from .mjcf import load_model  # noqa: F401
-from . import dynamics, spatial  # noqa: F401
+from . import dynamics, spatial, terrain  # noqa: F401
 
 
 def make_state(model: Model, key_name: str = "home") -> State:

@@ -4,7 +4,8 @@ Counterpart of ``opendog_tpu/physics/model.py``: the same field names, with
 static metadata kept as Python ints and tuples and every array a tensor on
 one device.  A ``Model`` is built once by :mod:`.mjcf` (or carried across
 from numpy arrays with :func:`model_from_arrays`) and read by the kernel
-tables, the costs and the solvers.
+tables, the costs and the solvers.  A ``Terrain`` holds one heightfield
+on a device (:func:`terrain_from_numpy` carries one across from numpy).
 """
 from __future__ import annotations
 
@@ -158,6 +159,33 @@ class State:
     qpos: torch.Tensor  # (nq,) or (K, nq)
     qvel: torch.Tensor  # (nv,) or (K, nv)
     time: torch.Tensor  # () or (K,)
+
+
+@dataclass
+class Terrain:
+    """Heightfield of one episode (counterpart of the JAX package's
+    ``Terrain``): heights in meters on a regular grid spanning
+    [-size_x, size_x] x [-size_y, size_y] of the model's ``hfield_size``;
+    rows follow world y, columns world x."""
+
+    height: torch.Tensor  # (nrow, ncol) float32
+
+    @staticmethod
+    def flat(nrow: int = 2, ncol: int = 2, device=None) -> "Terrain":
+        return Terrain(height=torch.zeros((nrow, ncol), dtype=torch.float32,
+                                          device=device))
+
+    def to(self, device) -> "Terrain":
+        return Terrain(height=self.height.to(device))
+
+
+def terrain_from_numpy(height: np.ndarray, device) -> Terrain:
+    """Carry a terrain across from numpy (e.g. the JAX package's
+    ``Terrain.height``): float32 heights on ``device``."""
+    h = np.asarray(height, dtype=np.float32)
+    if h.ndim != 2:
+        raise ValueError(f"terrain heights must be (nrow, ncol), got {h.shape}")
+    return Terrain(height=torch.from_numpy(h.copy()).to(torch.device(device)))
 
 
 def model_from_arrays(static: Dict, arrays: Dict[str, np.ndarray],

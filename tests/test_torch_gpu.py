@@ -1,6 +1,6 @@
-"""Tests of the port that need a CUDA card: the substep kernel against its
-plain PyTorch version on the card, at the main path's two shapes, and the
-launch counter.  Where there is no card they skip (decided inside a
+"""Tests of the port that need a CUDA card: every substep kernel against its
+plain PyTorch version on the card, at the shapes of the paths that launch
+it, and the launch counter.  Where there is no card they skip (decided inside a
 fixture, so that every worker collects the same tests).
 
 This file imports neither JAX nor the JAX package, so that it runs on the
@@ -10,9 +10,9 @@ out:  python -m pytest --noconftest -o addopts="" -q -m gpu tests/test_torch_gpu
 import pytest
 import torch
 
-from opendog_tpu_torch.assets import load_go1
+from opendog_tpu_torch.assets import load_go1, load_opendog
 from opendog_tpu_torch.ops import cuda_step
-from chip_smoke import random_batch
+from chip_smoke import random_batch, random_modes
 
 torch.set_num_threads(1)
 
@@ -56,3 +56,52 @@ def test_kernel_rejects_cpu_tensors(cuda_device):
     qp, qv, ct = _random_rows(m, 4, "cpu")
     with pytest.raises(ValueError, match="is on"):
         step(qp, qv, ct)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot,K,dt,n,with_plane,with_payload", [
+    ("go1", 256, 0.01, 2, False, True),            # K2: payload MPPI
+    ("opendog", 256, 0.01, 2, True, False),        # K3: trunk-plane MPPI
+    ("opendog", 256, 0.01, 2, "per_geom", False),  # K4: per-geom MPPI
+    ("opendog", 1, 0.002, 10, "per_geom", False),  # K4: terrain plant
+    ("opendog", 4096, 0.002, 10, True, True),      # K2 + K3: batch
+])
+def test_mode_kernel_matches_plain_on_card(cuda_device, robot, K, dt, n,
+                                           with_plane, with_payload):
+    """Each plane / payload instantiation against its plain version on
+    random states on the ground, random planes and payloads: 1e-4 qpos,
+    1e-3 qvel, as for the flat kernel."""
+    m = (load_go1 if robot == "go1" else load_opendog)("flat",
+                                                       device=cuda_device)
+    qp, qv, ct = (torch.from_numpy(a).to(cuda_device)
+                  for a in random_batch(m, K, on_ground=True))
+    extra = {name: torch.from_numpy(a).to(cuda_device)
+             for name, a in zip(("plane", "payload"),
+                                random_modes(m, K, with_plane, with_payload))
+             if a is not None}
+    key = cuda_step.launch_key(K, n, with_plane, with_payload)
+    before = cuda_step.LAUNCHES[key]
+    kp, kv = cuda_step.build_cuda_substep(
+        m, dt, n, device=cuda_device, with_plane=with_plane,
+        with_payload=with_payload)(qp, qv, ct, **extra)
+    pp, pv = cuda_step.build_plain_substep(m, dt, n, with_plane,
+                                           with_payload)(qp, qv, ct, **extra)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES[key] == before + 1
+    assert torch.isfinite(kp).all() and torch.isfinite(kv).all()
+    assert (kp - pp).abs().max().item() <= 1e-4
+    assert (kv - pv).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_payload_kernel_at_zero_is_the_flat_kernel(cuda_device):
+    """A zero payload leaves the trunk's mass and com as they are, so the
+    payload kernel's result is the flat kernel's, bit for bit."""
+    m = load_go1("flat", device=cuda_device)
+    qp, qv, ct = _random_rows(m, 256, cuda_device)
+    flat = cuda_step.build_cuda_substep(m, 0.01, 2, device=cuda_device)
+    loaded = cuda_step.build_cuda_substep(m, 0.01, 2, device=cuda_device,
+                                          with_payload=True)
+    a = flat(qp, qv, ct)
+    b = loaded(qp, qv, ct, payload=torch.zeros(1, 256, device=cuda_device))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

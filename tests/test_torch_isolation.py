@@ -34,6 +34,7 @@ bad = sorted(m for m in sys.modules
                                     "opendog_tpu"))
 print(len(names), bad)
 assert not bad, bad
+assert "opendog_tpu_torch.physics.terrain" in names, names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

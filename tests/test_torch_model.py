@@ -23,6 +23,8 @@ LOADERS = {
     "mini": (jax_assets.load_mini, lambda: assets.load_mini(device="cpu")),
     "opendog": (lambda: jax_assets.load_opendog("flat"),
                 lambda: assets.load_opendog("flat", device="cpu")),
+    "opendog_terrain": (lambda: jax_assets.load_opendog("terrain"),
+                        lambda: assets.load_opendog("terrain", device="cpu")),
 }
 
 

@@ -98,7 +98,7 @@ def _host_library():
                                 build.GXX_FLAGS)
     lib = ctypes.CDLL(built.path)
     lib.substep_model_size.restype = ctypes.c_int
-    lib.substep_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    lib.substep_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
     lib.substep_host.restype = ctypes.c_int
     assert lib.substep_model_size() == ctypes.sizeof(cuda_step.table_layout()[1])
     return lib
@@ -121,8 +121,8 @@ def test_kernel_arithmetic_host_build_matches_plain(robot, dt, n):
     table = cuda_step.substep_table(m, dt)
     out_p, out_v = torch.empty_like(qp), torch.empty_like(qv)
     rc = lib.substep_host(ctypes.addressof(table), qp.data_ptr(),
-                          qv.data_ptr(), ct.data_ptr(), out_p.data_ptr(),
-                          out_v.data_ptr(), K, n)
+                          qv.data_ptr(), ct.data_ptr(), None, None,
+                          out_p.data_ptr(), out_v.data_ptr(), K, n, 0, 0)
     assert rc == 0
     _close((out_p.numpy(), out_v.numpy()),
            (want[0].numpy(), want[1].numpy()), TIGHT)
@@ -153,8 +153,8 @@ def test_step_rejects_what_the_kernel_does_not_take():
         step(qp, qv, ct.to("meta"))
     with pytest.raises(ValueError, match="SC_NG_MAX"):
         cuda_step.substep_table(m.replace(ngeom=97), 0.002)
-    with pytest.raises(NotImplementedError, match="K2-K4"):
-        scalar_core.build_substep(m, 0.002, with_plane=True)
+    with pytest.raises(ValueError, match="with_plane"):
+        scalar_core.build_substep(m, 0.002, with_plane="trunk")
 
 
 def test_cuda_step_needs_a_card_unless_cpu_is_asked_for(monkeypatch):
