@@ -5,9 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no "ok" line):
   device   - a CUDA card must be present; prints its name and power limit;
-  build    - builds the substep kernels (csrc/, one nvcc call, five
-             instantiations: flat, payload, plane, pergeom, plane_payload)
-             for sm_90a and prints the ptxas report of each;
+  build    - builds the substep kernels (csrc/, one nvcc call, six
+             instantiations: flat and payload on the warp design; plane,
+             pergeom, plane_payload and pergeom_payload on the one-thread
+             design) for sm_90a and prints the ptxas report of each and the
+             warp kernels' rollouts and dynamic shared memory per block;
   check    - every kernel against its plain PyTorch version on the card at
              every shape its paths launch: flat on random Go1 states (MPPI
              rollout K=256 x 2 substeps of 10 ms; plant K=1 x 10 of 2 ms);
@@ -16,6 +18,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              x 2); pergeom on random OpenDOG states on the generated terrain
              with their own per-geom planes (K=256 x 2, K=1 x 10);
              plane_payload on the domain-randomised batch (K=4096 x 10);
+             pergeom_payload on the terrain states with payloads U(0, 3) kg
+             (K=256 x 2); and, check only, flat and payload at a ragged
+             K=257 x 2 (the last block of the warp kernels part full);
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc for 250 ticks: trunk in (0.12, 0.5) m, finite, forward
@@ -33,6 +38,10 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              finite, 25 payload launches per solve;
   batch    - 20 steps of the K=4096 domain-randomised plane + payload batch
              (bench 4c): finite;
+  pergeom-payload - 10 per-geom terrain solves of OpenDOG standing on the
+             generated terrain with 0.5 kg: 0 kg equals the per-geom solver
+             to 1e-6, 0.5 kg changes best_cost, finite, 25 pergeom_payload
+             launches per solve;
   profile  - torch.profiler over 10 ticks of the flat and terrain loops;
   timing   - CUDA-event times of every kernel at each of its path shapes,
              beside its plain version and its bound.
@@ -50,6 +59,8 @@ TICKS = 250            # flat trot loop
 TERRAIN_TICKS = 100    # per-geom terrain MPC
 TRUNK_TICKS = 50       # trunk-plane terrain MPC
 PAYLOAD_SOLVES = 100
+PERGEOM_PAYLOAD_SOLVES = 10
+PERGEOM_PAYLOAD_KG = 0.5
 BATCH_STEPS = 20
 TERRAIN_SEED = 0       # torch.Generator seed on the CPU: not a flat episode
 DROP_TICKS = 25        # the keyframe's 0.13 m drop to standing is over by then
@@ -60,9 +71,13 @@ DROP_BAND = (0.03, 0.21)
 STAND_BAND = (0.03, 0.15)
 MIN_FINAL_X = 0.5      # m trotted forward by the flat loop
 CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # kernel vs plain, max abs error
+# the substep of each kernel design; the entry points are in substep_kernel.cu
+SOURCES = {"warp": "opendog_tpu_torch/csrc/substep_warp.cuh",
+           "thread": "opendog_tpu_torch/csrc/substep_core.cuh"}
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROLLOUT = dict(K=256, dt=0.01, n=2)
+RAGGED = dict(K=257, dt=0.01, n=2)  # one rollout past the MPPI paths' K
 PLANT = dict(K=1, dt=0.002, n=10)
 BATCH = dict(K=4096, dt=0.002, n=10)
 
@@ -200,9 +215,11 @@ class Smoke:
         self.records = {}
 
     # -- check ------------------------------------------------------------
-    def check(self, label, model, shape, with_plane, with_payload, arrays):
+    def check(self, label, model, shape, with_plane, with_payload, arrays,
+              keep=True):
         """Kernel vs plain on ``arrays`` (numpy (rows, K): qpos, qvel, ctrl,
-        plane or None, payload or None); keeps the record for timing."""
+        plane or None, payload or None); keeps the record for timing unless
+        ``keep`` is False (a shape that no path launches)."""
         torch, cs = self.torch, self.cs
         args = [None if a is None else
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
@@ -235,6 +252,8 @@ class Smoke:
             if not err[k] <= CHECK_TOL[k]:
                 raise RuntimeError(f"[check] {label}: kernel disagrees with "
                                    f"its plain version on {k}: {err[k]}")
+        if not keep:
+            return
         self.records[label] = dict(
             model=model, shape=shape, err=max(err.values()), args=args,
             kern=kern, plain=plain, launches=0, name=kern.name,
@@ -260,6 +279,15 @@ class Smoke:
                    terrain_batch(dog_t, self.terrain, PLANT["K"]) + (None,))
         self.check("plane_payload batch", dog, BATCH, True, True,
                    batch_inputs(dog, BATCH["K"]))
+        self.check("pergeom_payload rollout", dog_t, ROLLOUT, "per_geom",
+                   True, terrain_batch(dog_t, self.terrain, K)
+                   + random_modes(dog_t, K, False, True)[1:])
+        Kr = RAGGED["K"]
+        self.check("flat ragged", go1, RAGGED, False, False,
+                   random_batch(go1, Kr) + none, keep=False)
+        self.check("payload ragged", go1, RAGGED, False, True,
+                   random_batch(go1, Kr) + random_modes(go1, Kr, False, True),
+                   keep=False)
 
     # -- paths ------------------------------------------------------------
     def counted(self, label, run, want):
@@ -452,6 +480,68 @@ class Smoke:
         if not finite:
             raise RuntimeError("[payload] non-finite solve output")
 
+    def pergeom_payload_solves(self):
+        """Per-geom terrain MPPI of OpenDOG standing on the generated
+        terrain, carrying a payload."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import dynamics, make_state
+        from opendog_tpu_torch.solvers import MPPIConfig, costs, mppi
+        model, terr = self.dog_t, self.terrain
+        h0 = float(dynamics._terrain_height_normal(
+            model, terr, torch.zeros(1, 2, device=dev))[0][0])
+        cost = costs.standing_cost(model, 0.0694 + h0, model.key_qpos[0, 7:])
+        cfg = MPPIConfig(horizon=25, num_samples=256, n_substeps=2,
+                         rollout_dt=0.01, noise_sigma=0.08, temperature=0.3)
+        pg = mppi.make_solver(model, cost, cfg, device=dev, terrain=terr,
+                              plane_mode="per_geom")
+        pay = mppi.make_solver(model, cost, cfg, device=dev, terrain=terr,
+                               plane_mode="per_geom", with_payload=True)
+        st = make_state(model, "home")
+        st.qpos[2] += h0 + 0.0694 - float(model.key_qpos[0, 2])  # standing
+        ms0 = mppi.init_state(model, cfg)
+        normals = torch.randn(
+            (cfg.num_samples, cfg.horizon, model.nu), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(3))
+        c_f, m_f, s_f = pg(st, ms0, None, normals)
+        c_0, m_0, s_0 = pay(st, ms0, None, normals, 0.0)
+        c_h, _, s_h = pay(st, ms0, None, normals, PERGEOM_PAYLOAD_KG)
+        d0 = max((c_0 - c_f).abs().max().item(),
+                 (m_0.nominal - m_f.nominal).abs().max().item(),
+                 abs(float(s_0["best_cost"]) - float(s_f["best_cost"])))
+        dh = abs(float(s_h["best_cost"]) - float(s_0["best_cost"]))
+        log(f"[pergeom-payload] 0 kg vs the per-geom solver: max abs "
+            f"difference {d0:.3e} (tolerance 1e-6); {PERGEOM_PAYLOAD_KG} kg "
+            f"moves best_cost by {dh:.4f} ({float(s_0['best_cost']):.4f} -> "
+            f"{float(s_h['best_cost']):.4f})")
+        if not d0 <= 1e-6:
+            raise RuntimeError(f"[pergeom-payload] 0 kg differs from the "
+                               f"per-geom solver by {d0}")
+        if not dh > 1e-6:
+            raise RuntimeError("[pergeom-payload] the payload does not "
+                               "change best_cost")
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def run():
+            ms, ctrls = ms0, []
+            t0 = time.perf_counter()
+            for _ in range(PERGEOM_PAYLOAD_SOLVES):
+                ctrl, ms, stats = pay(st, ms, gen, None, PERGEOM_PAYLOAD_KG)
+                ctrls.append(ctrl)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, torch.stack(ctrls), stats
+
+        want = {cs.launch_key(cfg.num_samples, cfg.n_substeps, "per_geom",
+                              True): cfg.horizon * PERGEOM_PAYLOAD_SOLVES}
+        wall, ctrls, stats = self.counted("pergeom-payload", run, want)
+        finite = bool(torch.isfinite(ctrls).all().item()) and all(
+            bool(torch.isfinite(v).all().item()) for v in stats.values())
+        log(f"[pergeom-payload] {PERGEOM_PAYLOAD_SOLVES} solves with "
+            f"{PERGEOM_PAYLOAD_KG} kg in {wall:.3f} s: "
+            f"{1e3 * wall / PERGEOM_PAYLOAD_SOLVES:.3f} ms/solve | best_cost "
+            f"{float(stats['best_cost']):.4f} | finite {finite}")
+        if not finite:
+            raise RuntimeError("[pergeom-payload] non-finite solve output")
+
     def batch_steps(self):
         torch, dev, cs = self.torch, self.dev, self.cs
         model, K = self.dog, BATCH["K"]
@@ -604,7 +694,9 @@ class Smoke:
             t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
             bound_ms = 1e3 * max(t_ops, t_bytes)
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            log(f"[timing] {label} ({rec['name']}) K={K} x{n}: kernel "
+            design = self.cs.KERNEL_DESIGNS[rec["name"]]
+            log(f"[timing] {label} ({rec['name']}, {design} design) K={K} "
+                f"x{n}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} "
                 f"ms by {bound_by} ({ops} ops at 67 TFLOP/s fp32 vs {nbytes} "
                 f"B at 3.35 TB/s; {100 * bound_ms / ms:.3f}% of bound); "
@@ -613,7 +705,8 @@ class Smoke:
             kernels.append({
                 "name": f"{rec['name']} ({label}: K={K}, {n} substeps)",
                 "route": "cuda",
-                "source": "opendog_tpu_torch/csrc/substep_kernel.cu",
+                "design": design,
+                "source": SOURCES[design],
                 "replaces": "opendog_tpu/ops/pallas_step.py:115",
                 "launches": rec["launches"],
                 "max_abs_err": rec["err"],
@@ -648,8 +741,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- build ----
-    _, built = cuda_step.cuda_library()
-    log(f"[build] {built.path} built in {built.seconds:.1f} s")
+    lib, built = cuda_step.cuda_library()
+    log(f"[build] {built.path} built in {built.seconds:.1f} s; warp kernels: "
+        f"{lib.substep_warps_per_block()} rollouts per block, "
+        f"{lib.substep_warp_smem_bytes()} B of dynamic shared memory per "
+        "block")
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "stack", "Compiling")):
             log(f"[build] {line.strip()}")
@@ -665,6 +761,7 @@ def main():
     smoke.terrain_loop("terrain-trunk", "trunk", TRUNK_TICKS)
     smoke.payload_solves()
     smoke.batch_steps()
+    smoke.pergeom_payload_solves()
     smoke.profile("flat", flat_tick, flat_carry)
     smoke.profile("terrain", terr_tick, terr_carry)
     smoke.planes_cost(terr_carry.plant.qpos)

@@ -44,6 +44,10 @@
 #define SC_G_MAX 4         // leg chains
 #define SC_NCH_MAX 3       // dofs per chain
 #define SC_NPAIR_MAX 171   // SC_NV_MAX * (SC_NV_MAX + 1) / 2
+#define SC_ANC_MAX 9       // ancestor dofs of a body: 6 base + SC_NCH_MAX
+#define SC_BCH_MAX 8       // serial body chains below the base
+#define SC_BCHLEN_MAX 8    // bodies per body chain
+#define SC_DOFSPH_MAX SC_NG_MAX * SC_ANC_MAX  // (dof, sphere) incidences
 #define SC_MAGIC 0x53425331
 
 // The ground of a substep instantiation (template parameter PLANE).
@@ -55,6 +59,13 @@
 // for a flat array and its length.  The Python wrapper reads this list to
 // build the matching ctypes structure, so it is the only statement of the
 // layout.  2-D tables are flattened row-major (e.g. body_pos[b * 3 + k]).
+// The fields from npair on are the index lists of the warp design
+// (substep_warp.cuh): the body chains below the base (each child of the
+// base and its serial descendants, in order), the (i, j), i <= j, of each
+// arrow pair, each dof's position in the ancestor-dof list of every body
+// below it, and each dof's spheres (the spheres whose body it moves) in
+// increasing order at dof_sph[dof_sph_off[j] ...], dof_nsph[j] of them.
+// Pair (i, j) touches exactly the spheres of dof j.
 #define SUBSTEP_MODEL_FIELDS(INT, FLT, INTS, FLTS)            \
   INT(magic)                                                   \
   INT(nb)                                                      \
@@ -102,7 +113,17 @@
   FLTS(geom_k, SC_NG_MAX)                                      \
   FLTS(geom_d, SC_NG_MAX)                                      \
   INTS(chains, SC_G_MAX * SC_NCH_MAX)                          \
-  INTS(pair_index, SC_NV_MAX * SC_NV_MAX)
+  INTS(pair_index, SC_NV_MAX * SC_NV_MAX)                      \
+  INT(npair)                                                   \
+  INT(n_bchains)                                               \
+  INTS(bchain_len, SC_BCH_MAX)                                 \
+  INTS(bchain_body, SC_BCH_MAX * SC_BCHLEN_MAX)                \
+  INTS(pair_i, SC_NPAIR_MAX)                                   \
+  INTS(pair_j, SC_NPAIR_MAX)                                   \
+  INTS(dof_pos, SC_NV_MAX)                                     \
+  INTS(dof_nsph, SC_NV_MAX)                                    \
+  INTS(dof_sph_off, SC_NV_MAX)                                 \
+  INTS(dof_sph, SC_DOFSPH_MAX)
 
 #define SC_DECL_INT(name) int name;
 #define SC_DECL_FLT(name) float name;

@@ -1,58 +1,80 @@
-// CUDA kernels K1-K4: the fused physics substep, one thread per rollout, in
-// each mode of the TPU kernel.
+// CUDA kernels K1-K4: the fused physics substep in each mode of the TPU
+// kernel.
 //
 // Replaces opendog_tpu/ops/pallas_step.py::build_pallas_substep (the
 // pl.pallas_call at pallas_step.py:115), which runs n_substeps Featherstone
 // substeps per launch for K rollouts laid out as (rows, K).  Its modes are
-// different work, so each is its own instantiation of the substep template
-// of substep_core.cuh and its own entry point:
-//   substep_flat          K1  ground z = 0
-//   substep_payload       K2  z = 0, a point mass at the trunk origin per
-//                             rollout (payload (1, K))
-//   substep_plane         K3  one contact plane per rollout (plane (4, K))
-//   substep_pergeom       K4  one plane per collision geom and rollout
-//                             (plane (4 * ngeom, K))
-//   substep_plane_payload K2 + K3 together (the domain-randomised batch)
+// different work, so each is its own instantiation and its own entry point:
+//   substep_flat            K1  ground z = 0                     (warp)
+//   substep_payload         K2  z = 0, a point mass at the trunk origin per
+//                               rollout (payload (1, K))          (warp)
+//   substep_plane           K3  one contact plane per rollout (plane (4, K))
+//   substep_pergeom         K4  one plane per collision geom and rollout
+//                               (plane (4 * ngeom, K))
+//   substep_plane_payload   K2 + K3 (the domain-randomised batch)
+//   substep_pergeom_payload K2 + K4
+// Two designs: the flat modes run the warp design of substep_warp.cuh, the
+// others still the one-thread design of substep_core.cuh.  Both compute the
+// same floats in the same order.
 //
-// Design.  Thread k owns rollout k (the counterpart of one TPU vector lane):
-// it loads column k of qpos (nq, K), qvel (nv, K) and ctrl (nu, K) -- the
-// threads of a warp read neighbouring addresses of each row, so the loads and
-// stores are coalesced -- runs n_substeps substeps of substep_core.cuh in
-// registers and local memory, and writes column k of the outputs.  The lane
-// plane (4 values) and the payload are loaded once per launch; the per-geom
-// planes are read from device memory inside the contact loop, column k of
-// each row, coalesced across the warp like the state (96 rows for OpenDOG:
-// copying them into the thread's local memory would add 384 B to a stack
-// frame of ~7.5 KB for values read once per substep).  The model tables
-// (SubstepModel, ~9.4 KB) are copied from device memory into shared memory
-// once per block; every thread then reads the same address, which shared
-// memory broadcasts.  The loop over substeps runs inside the kernel, so the
-// 10-substep plant step (K = 1) is one launch.
+// Warp design (K1, K2).  Warp w of a block owns rollout blockIdx.x * W + w
+// (W = SC_WARPS rollouts per block) and its 32 lanes split that rollout's
+// substep into phases with a __syncwarp() between two (substep_warp.cuh
+// lists them).  Each rollout's working arrays (SubstepWork, ~20 KB) live in
+// dynamic shared memory after the block's copy of the model tables
+// (SubstepModel, ~14 KB), not in local memory: 91 KB per block at W = 4,
+// two blocks per SM.  A warp whose rollout is >= K helps copy the table and
+// does nothing else.  What bounds it on an H100:
+// scalar float32 work in short dependency chains on a few hundred bytes of
+// state per rollout; the matrices are 3x3 and 6x6, at most 9 dofs per
+// sphere, so wgmma and TMA do not apply (no 64-row tiles, nothing worth a
+// bulk copy).  The levers are shared memory in place of local memory, more
+// SMs busy at the MPPI paths' K = 256 (256 warps instead of 2 blocks of 128
+// threads), and a shorter critical path per substep: a base pair's contact
+// sum over every sphere (78 for Go1) is its longest serial stretch.
 //
-// What bounds it on an H100: float32 arithmetic in long serial dependency
-// chains (~49k operations per Go1 rollout and flat substep, see
-// opendog_tpu_torch/ops/scalar_core.py::count_substep_ops) against a few
-// hundred bytes of state per rollout, so bytes are negligible.  The
-// per-thread working arrays live in local memory (the stack frame of
-// chip_smoke.py's ptxas report), which L1 mostly absorbs.  At the MPPI
-// paths' K = 256 the grid is 2 blocks of 128 threads: 2 of the card's 132
-// SMs, each with 4 warps to hide the latency of those chains, and the K = 1
-// plant step is a single thread.  Spreading one rollout's substep over
-// several threads (per body, per geom, per arrow block) is the lever for a
-// later change.
+// One-thread design (K3, K4 and the plane + payload modes).  Thread k owns
+// rollout k: it loads column k of qpos (nq, K), qvel (nv, K) and ctrl
+// (nu, K) (coalesced across the warp), runs n_substeps substeps of
+// substep_core.cuh in registers and local memory (a ~7.5 KB stack frame),
+// and writes column k of the outputs.  The lane plane and the payload are
+// loaded once per launch; the per-geom planes are read from device memory
+// inside the contact loop, column k of each row.  The model tables are copied
+// into shared memory once per block.  At K = 256 this fills 2 of the 132 SMs
+// and the K = 1 plant is one thread; these modes move to the warp design in
+// later changes.
+//
+// Both designs loop over the substeps inside the kernel, so a 10-substep
+// plant step (K = 1) is one launch.
 #include <cuda_runtime.h>
 
 #include "substep_core.cuh"
+#include "substep_warp.cuh"
 
-#define SC_BLOCK 128
+#define SC_BLOCK 128  // threads per block of the one-thread design
+
+// Rollouts (warps) per block of the warp design: 4 was the fastest of 1, 2
+// and 4 at both flat path shapes on an H100 (PERF.md, measured with
+// scripts/torch_warp_sweep.py, which overrides it to measure).
+#ifndef SC_WARPS
+#define SC_WARPS 4
+#endif
+
+#define SC_ARGS                                                             \
+  const SubstepModel *__restrict__ model, const float *__restrict__ qpos,   \
+      const float *__restrict__ qvel, const float *__restrict__ ctrl,       \
+      const float *__restrict__ plane, const float *__restrict__ payload,   \
+      float *__restrict__ qpos_out, float *__restrict__ qvel_out, int K,    \
+      int n_substeps
+#define SC_PASS \
+  model, qpos, qvel, ctrl, plane, payload, qpos_out, qvel_out, K, n_substeps
+
+// ---------------------------------------------------------------------------
+// one-thread design
+// ---------------------------------------------------------------------------
 
 template <int PLANE, bool PAYLOAD>
-__device__ __forceinline__ void substep_body(
-    const SubstepModel* __restrict__ model, const float* __restrict__ qpos,
-    const float* __restrict__ qvel, const float* __restrict__ ctrl,
-    const float* __restrict__ plane, const float* __restrict__ payload,
-    float* __restrict__ qpos_out, float* __restrict__ qvel_out, int K,
-    int n_substeps) {
+__device__ __forceinline__ void substep_body(SC_ARGS) {
   __shared__ SubstepModel sm;
   {
     const int* src = reinterpret_cast<const int*>(model);
@@ -85,55 +107,109 @@ __device__ __forceinline__ void substep_body(
   for (int r = 0; r < sm.nv; ++r) qvel_out[(size_t)r * K + k] = qv[r];
 }
 
-#define SC_KERNEL(NAME, PLANE, PAYLOAD)                                       \
-  extern "C" __global__ void __launch_bounds__(SC_BLOCK) NAME(                \
-      const SubstepModel* __restrict__ model, const float* __restrict__ qpos, \
-      const float* __restrict__ qvel, const float* __restrict__ ctrl,         \
-      const float* __restrict__ plane, const float* __restrict__ payload,     \
-      float* __restrict__ qpos_out, float* __restrict__ qvel_out, int K,      \
-      int n_substeps) {                                                       \
-    substep_body<PLANE, PAYLOAD>(model, qpos, qvel, ctrl, plane, payload,     \
-                                 qpos_out, qvel_out, K, n_substeps);          \
+#define SC_KERNEL(NAME, PLANE, PAYLOAD)                                   \
+  extern "C" __global__ void __launch_bounds__(SC_BLOCK) NAME(SC_ARGS) { \
+    substep_body<PLANE, PAYLOAD>(SC_PASS);                                \
   }
 
-SC_KERNEL(substep_flat, SC_PLANE_FLAT, false)
-SC_KERNEL(substep_payload, SC_PLANE_FLAT, true)
 SC_KERNEL(substep_plane, SC_PLANE_LANE, false)
 SC_KERNEL(substep_pergeom, SC_PLANE_GEOM, false)
 SC_KERNEL(substep_plane_payload, SC_PLANE_LANE, true)
+SC_KERNEL(substep_pergeom_payload, SC_PLANE_GEOM, true)
+
+// ---------------------------------------------------------------------------
+// warp design
+// ---------------------------------------------------------------------------
+
+// dynamic shared memory of a block: the table, then SC_WARPS workspaces
+#define SC_TABLE_BYTES ((sizeof(SubstepModel) + 15) / 16 * 16)
+#define SC_WARP_SMEM (SC_TABLE_BYTES + SC_WARPS * sizeof(SubstepWork))
+
+template <int PLANE, bool PAYLOAD>
+__device__ __forceinline__ void substep_warp_body(SC_ARGS) {
+  extern __shared__ __align__(16) unsigned char sc_smem[];
+  SubstepModel& sm = *reinterpret_cast<SubstepModel*>(sc_smem);
+  {
+    const int* src = reinterpret_cast<const int*>(model);
+    int* dst = reinterpret_cast<int*>(sc_smem);
+    const int words = (int)(sizeof(SubstepModel) / sizeof(int));
+    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / SC_LANES, lane = threadIdx.x % SC_LANES;
+  const int k = blockIdx.x * SC_WARPS + warp;
+  if (k >= K) return;  // the whole warp: the ragged tail of the last block
+  SubstepWork& w =
+      reinterpret_cast<SubstepWork*>(sc_smem + SC_TABLE_BYTES)[warp];
+  scw_load<PLANE, PAYLOAD>(sm, w, lane, qpos, qvel, ctrl, plane, payload, K,
+                           k);
+  __syncwarp();
+  for (int s = 0; s < n_substeps; ++s)
+    sc_warp_substep<PLANE, PAYLOAD>(sm, w, lane, false);
+  scw_store(sm, w, lane, qpos_out, qvel_out, K, k);
+}
+
+#define SC_WARP_KERNEL(NAME, PLANE, PAYLOAD)                      \
+  extern "C" __global__ void __launch_bounds__(SC_LANES* SC_WARPS) \
+      NAME(SC_ARGS) {                                              \
+    substep_warp_body<PLANE, PAYLOAD>(SC_PASS);                    \
+  }
+
+SC_WARP_KERNEL(substep_flat, SC_PLANE_FLAT, false)
+SC_WARP_KERNEL(substep_payload, SC_PLANE_FLAT, true)
+
+// ---------------------------------------------------------------------------
+// C interface
+// ---------------------------------------------------------------------------
 
 extern "C" int substep_model_size() { return (int)sizeof(SubstepModel); }
 
+// rollouts per block and dynamic shared memory per block [B] of the warp
+// kernels
+extern "C" int substep_warps_per_block() { return SC_WARPS; }
+extern "C" int substep_warp_smem_bytes() { return (int)SC_WARP_SMEM; }
+
+typedef void (*SubstepKernel)(SC_ARGS);
+
+static int launch_warp(SubstepKernel kern, SC_ARGS, cudaStream_t s) {
+  const size_t smem = SC_WARP_SMEM;
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (K + SC_WARPS - 1) / SC_WARPS;
+  kern<<<grid, SC_LANES * SC_WARPS, smem, s>>>(SC_PASS);
+  return (int)cudaGetLastError();
+}
+
+static int launch_thread(SubstepKernel kern, SC_ARGS, cudaStream_t s) {
+  const int grid = (K + SC_BLOCK - 1) / SC_BLOCK;
+  kern<<<grid, SC_BLOCK, 0, s>>>(SC_PASS);
+  return (int)cudaGetLastError();
+}
+
 // Launches the instantiation of (plane_mode = SC_PLANE_*, with_payload) on
-// `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a combination that is not instantiated; does not
+// `stream` and returns cudaGetLastError() (0 on success); does not
 // synchronise.  `model` is a device copy of a SubstepModel; `plane` and
 // `payload` may be null where the mode does not read them.
-extern "C" int substep_launch(const void* model, const float* qpos,
+extern "C" int substep_launch(const void* model_, const float* qpos,
                               const float* qvel, const float* ctrl,
                               const float* plane, const float* payload,
                               float* qpos_out, float* qvel_out, int K,
                               int n_substeps, int plane_mode, int with_payload,
                               void* stream) {
-  const int grid = (K + SC_BLOCK - 1) / SC_BLOCK;
-  const SubstepModel* m = (const SubstepModel*)model;
+  const SubstepModel* model = (const SubstepModel*)model_;
   cudaStream_t s = (cudaStream_t)stream;
-#define SC_LAUNCH(NAME) \
-  NAME<<<grid, SC_BLOCK, 0, s>>>(m, qpos, qvel, ctrl, plane, payload, \
-                                 qpos_out, qvel_out, K, n_substeps)
-  if (plane_mode == SC_PLANE_FLAT && !with_payload) {
-    SC_LAUNCH(substep_flat);
-  } else if (plane_mode == SC_PLANE_FLAT && with_payload) {
-    SC_LAUNCH(substep_payload);
-  } else if (plane_mode == SC_PLANE_LANE && !with_payload) {
-    SC_LAUNCH(substep_plane);
-  } else if (plane_mode == SC_PLANE_GEOM && !with_payload) {
-    SC_LAUNCH(substep_pergeom);
-  } else if (plane_mode == SC_PLANE_LANE && with_payload) {
-    SC_LAUNCH(substep_plane_payload);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef SC_LAUNCH
-  return (int)cudaGetLastError();
+  if (plane_mode == SC_PLANE_FLAT)
+    return launch_warp(with_payload ? substep_payload : substep_flat,
+                       SC_PASS, s);
+  if (plane_mode == SC_PLANE_LANE)
+    return launch_thread(with_payload ? substep_plane_payload : substep_plane,
+                         SC_PASS, s);
+  if (plane_mode == SC_PLANE_GEOM)
+    return launch_thread(
+        with_payload ? substep_pergeom_payload : substep_pergeom, SC_PASS, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,10 @@
 Port of ``opendog_tpu/ops/pallas_step.py`` (``build_pallas_substep``, the
 ``pl.pallas_call`` at line 115) in each of its modes: flat ground (K1), a
 per-lane payload (K2), a per-lane contact plane (K3), per-geom planes (K4),
-and plane + payload together.  The kernels (``csrc/substep_kernel.cu``
-around ``csrc/substep_core.cuh``) run one thread per rollout over a table of
-model constants built here; see the note at the top of the ``.cu`` file for
+and each plane mode with a payload.  The kernels (``csrc/substep_kernel.cu``)
+run over a table of model constants built here: the flat modes one warp per
+rollout (``csrc/substep_warp.cuh``), the others one thread per rollout
+(``csrc/substep_core.cuh``); see the note at the top of the ``.cu`` file for
 their design and what bounds them.
 
 Layout as in the JAX package: ``qpos (nq, K)``, ``qvel (nv, K)``,
@@ -32,15 +33,18 @@ from ..physics.model import JNT_FREE, JNT_HINGE, JNT_NONE, Model
 from . import build, scalar_core
 
 # The kernel of each mode (with_plane, with_payload), named as its entry
-# point in csrc/substep_kernel.cu.  Per-geom planes with a payload run on no
-# path and are not instantiated.
+# point in csrc/substep_kernel.cu, and its design: "warp" (one warp per
+# rollout) or "thread" (one thread per rollout).
 KERNEL_NAMES = {
-    (False, False): "substep_flat",           # K1
-    (False, True): "substep_payload",         # K2
-    (True, False): "substep_plane",           # K3
-    ("per_geom", False): "substep_pergeom",   # K4
-    (True, True): "substep_plane_payload",    # K2 + K3
+    (False, False): "substep_flat",                     # K1
+    (False, True): "substep_payload",                   # K2
+    (True, False): "substep_plane",                     # K3
+    ("per_geom", False): "substep_pergeom",             # K4
+    (True, True): "substep_plane_payload",              # K2 + K3
+    ("per_geom", True): "substep_pergeom_payload",      # K2 + K4
 }
+KERNEL_DESIGNS = {name: "warp" if not plane else "thread"
+                  for (plane, _), name in KERNEL_NAMES.items()}
 _PLANE_CODE = {False: 0, True: 1, "per_geom": 2}  # SC_PLANE_* of the header
 
 # Launches of the kernels, keyed by kernel and shape
@@ -51,16 +55,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 
 def kernel_name(with_plane=False, with_payload: bool = False) -> str:
-    """The kernel of a mode; raises for a mode that has none."""
+    """The kernel of a mode; raises for an unknown plane mode."""
     if with_plane not in scalar_core.PLANE_MODES:
         raise ValueError(f"with_plane must be one of "
                          f"{scalar_core.PLANE_MODES}, got {with_plane!r}")
-    name = KERNEL_NAMES.get((with_plane, bool(with_payload)))
-    if name is None:
-        raise ValueError(f"no substep kernel for with_plane={with_plane!r} "
-                         f"with with_payload={with_payload}: per-geom planes "
-                         "with a payload are not instantiated")
-    return name
+    return KERNEL_NAMES[(with_plane, bool(with_payload))]
 
 
 def launch_key(K: int, n_substeps: int, with_plane=False,
@@ -191,11 +190,75 @@ def substep_table(model: Model, dt: float) -> ctypes.Structure:
     ch = np.zeros((c["SC_G_MAX"], c["SC_NCH_MAX"]), np.int32)
     ch[:G, :n] = chains
     put("chains", ch)
+    pairs = scalar_core.arrow_pairs(model)
     pair_index = np.full((c["SC_NV_MAX"], c["SC_NV_MAX"]), -1, np.int32)
-    for p, (i, j) in enumerate(scalar_core.arrow_pairs(model)):
+    for p, (i, j) in enumerate(pairs):
         pair_index[i, j] = pair_index[j, i] = p
     put("pair_index", pair_index)
+    _put_warp_lists(t, put, model, c, body_dofs, pairs)
     return t
+
+
+def _put_warp_lists(t, put, model: Model, c, body_dofs, pairs) -> None:
+    """The index lists of the warp design (``csrc/substep_warp.cuh``): body
+    chains, pair (i, j), each dof's position in the ancestor-dof lists and
+    each dof's spheres.  Raises for a body tree that is not a base with
+    serial chains below it, or where a pair's spheres are not its larger
+    dof's."""
+    nb, nv, ng = model.nbody, model.nv, model.ngeom
+    t.npair = len(pairs)
+    put("pair_i", [min(i, j) for i, j in pairs])
+    put("pair_j", [max(i, j) for i, j in pairs])
+    children = [[b for b in range(1, nb) if model.body_parent[b] == p]
+                for p in range(nb)]
+    chains = []
+    for head in children[0]:
+        chain = [head]
+        while children[chain[-1]]:
+            if len(children[chain[-1]]) > 1:
+                raise ValueError(
+                    f"body {chain[-1]} has {len(children[chain[-1]])} "
+                    "children: the substep kernel needs serial chains of "
+                    "bodies below the base")
+            chain.append(children[chain[-1]][0])
+        chains.append(chain)
+    if len(chains) > c["SC_BCH_MAX"]:
+        raise ValueError(f"model has {len(chains)} body chains below the "
+                         f"base; SC_BCH_MAX={c['SC_BCH_MAX']}")
+    if max(map(len, chains), default=0) > c["SC_BCHLEN_MAX"]:
+        raise ValueError(f"a body chain exceeds SC_BCHLEN_MAX="
+                         f"{c['SC_BCHLEN_MAX']}")
+    t.n_bchains = len(chains)
+    put("bchain_len", [len(ch) for ch in chains])
+    flat = np.zeros((c["SC_BCH_MAX"], c["SC_BCHLEN_MAX"]), np.int32)
+    for k, ch in enumerate(chains):
+        flat[k, :len(ch)] = ch
+    put("bchain_body", flat)
+    dof_pos = [-1] * nv
+    for b, dofs in enumerate(body_dofs):
+        if len(dofs) > c["SC_ANC_MAX"]:
+            raise ValueError(f"body {b} has {len(dofs)} ancestor dofs; "
+                             f"SC_ANC_MAX={c['SC_ANC_MAX']}")
+        for d, j in enumerate(dofs):
+            if dof_pos[j] not in (-1, d):
+                raise ValueError(f"dof {j} sits at different positions in "
+                                 "the ancestor-dof lists of its bodies")
+            dof_pos[j] = d
+    put("dof_pos", dof_pos)
+    anc = model.numpy("ancestor_mask")
+    geom_body = [int(b) for b in model.geom_body_static]
+    spheres = [[g for g in range(ng) if anc[geom_body[g], j] > 0]
+               for j in range(nv)]
+    for i, j in pairs:
+        i, j = min(i, j), max(i, j)
+        touch = [g for g in range(ng)
+                 if anc[geom_body[g], i] > 0 and anc[geom_body[g], j] > 0]
+        if touch != spheres[j]:
+            raise ValueError(f"pair ({i}, {j}) touches other spheres than "
+                             f"dof {j}")
+    put("dof_nsph", [len(s) for s in spheres])
+    put("dof_sph_off", np.cumsum([0] + [len(s) for s in spheres])[:-1])
+    put("dof_sph", [g for s in spheres for g in s])
 
 
 # ---------------------------------------------------------------------------
@@ -208,16 +271,25 @@ def cuda_library() -> Tuple[ctypes.CDLL, "build.BuiltLibrary"]:
     """Build (once, at first use) and load ``csrc/substep_kernel.cu``."""
     built = build.build_library("substep_cuda", "substep_kernel.cu",
                                 build.find_nvcc(), build.NVCC_FLAGS)
-    lib = ctypes.CDLL(built.path)
-    lib.substep_model_size.argtypes = []
-    lib.substep_model_size.restype = ctypes.c_int
-    lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.substep_launch.restype = ctypes.c_int
+    lib = load_library(built.path)
     if lib.substep_model_size() != ctypes.sizeof(table_layout()[1]):
         raise RuntimeError("SubstepModel layout differs between the CUDA "
                            "library and its Python mirror")
     return lib, built
+
+
+def load_library(path: str) -> ctypes.CDLL:
+    """Load a build of ``csrc/substep_kernel.cu`` and declare its C
+    interface."""
+    lib = ctypes.CDLL(path)
+    for fn in (lib.substep_model_size, lib.substep_warps_per_block,
+               lib.substep_warp_smem_bytes):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.substep_launch.restype = ctypes.c_int
+    return lib
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time the flat MPC tick and the payload MPPI solve of two checkouts of the
+PyTorch port on one CUDA card, in turns.
+
+Usage, from the root of a checkout, with another checkout (e.g. the parent
+commit unpacked with ``git archive``) at OTHER:
+
+    python3 scripts/torch_tick_ab.py OTHER
+
+Each run is a process of its own in one checkout: the Go1 flat trot loop of
+``chip_smoke.py`` [main] (make_mpc, K=256, H=25, 2 x 10 ms substeps, plant
+10 x 2 ms) warmed up for 5 ticks and timed over TICKS ticks, then the
+payload solver of [payload] with 1.5 kg warmed up for 3 solves and timed
+over SOLVES solves, each by the host clock around work that ends in
+``torch.cuda.synchronize()``.  The runs go other, this, this, other, other,
+this, so that a drift of the card or its host shows as a spread between the
+runs of one checkout.  The script prints one JSON line with every run's
+ms/tick and ms/solve and the card's name and power limit.  It imports no
+JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+
+TICKS = 200
+SOLVES = 50
+
+CHILD = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from opendog_tpu_torch.assets import load_go1
+from opendog_tpu_torch.physics import make_state
+from opendog_tpu_torch.solvers import MPPIConfig, costs, make_mpc, mppi
+dev = torch.device("cuda", 0)
+model = load_go1("flat", device=dev)
+params = costs.TrotCostParams(desired_vel_xy=(0.5, 0.0), target_height=0.265)
+cost = costs.trot_cost(model, params, model.key_qpos[0, 7:], legs="go1")
+cfg = MPPIConfig(horizon=25, num_samples=256, n_substeps=2, rollout_dt=0.01,
+                 noise_sigma=0.12, temperature=0.3)
+init, tick, _ = make_mpc(model, cost, cfg, plant_substeps=10, device=dev)
+carry = init(torch.Generator(device=dev).manual_seed(0),
+             make_state(model, "home"))
+for _ in range(5):
+    carry, _ = tick(carry)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(%d):
+    carry, out = tick(carry)
+torch.cuda.synchronize()
+tick_ms = 1e3 * (time.perf_counter() - t0) / %d
+pay = mppi.make_solver(model, cost, cfg, device=dev, with_payload=True)
+st, ms = make_state(model, "home"), mppi.init_state(model, cfg)
+gen = torch.Generator(device=dev).manual_seed(0)
+for _ in range(3):
+    pay(st, ms, gen, None, 1.5)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(%d):
+    ctrl, ms, stats = pay(st, ms, gen, None, 1.5)
+torch.cuda.synchronize()
+solve_ms = 1e3 * (time.perf_counter() - t0) / %d
+print(json.dumps({"tick_ms": tick_ms, "solve_ms": solve_ms,
+                  "final_x": float(carry.plant.qpos[0].item())}))
+""" % (TICKS, TICKS, SOLVES, SOLVES)
+
+
+def run_checkout(root: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", CHILD, root], cwd=root,
+                          timeout=900, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the run in {root} failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = os.path.abspath(sys.argv[1])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    order = ("other", "this", "this", "other", "other", "this")
+    runs = [(label, run_checkout(here if label == "this" else other))
+            for label in order]
+    res = {label: {key: [r[key] for lab, r in runs if lab == label]
+                   for key in ("tick_ms", "solve_ms", "final_x")}
+           for label in ("this", "other")}
+    print(json.dumps({"other": other, "card": smi, "ticks": TICKS,
+                      "solves": SOLVES, "order": list(order),
+                      "results": res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: every substep kernel against its
 plain PyTorch version on the card, at the shapes of the paths that launch
-it, and the launch counter.  Where there is no card they skip (decided inside a
+it (and, for the warp-design kernels, at the edges of their grid), and the
+launch counter.  Where there is no card they skip (decided inside a
 fixture, so that every worker collects the same tests).
 
 This file imports neither JAX nor the JAX package, so that it runs on the
@@ -31,22 +32,32 @@ def _random_rows(model, K, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,dt,n", [(256, 0.01, 2), (1, 0.002, 10)])
-def test_kernel_matches_plain_on_card(cuda_device, K, dt, n):
-    """Max abs error 1e-4 qpos / 1e-3 qvel, the tolerance of chip_smoke.py
-    (random states at dt = 0.01 are ill-conditioned: see ops/build.py)."""
+@pytest.mark.parametrize("with_payload", [False, True])  # K1, K2
+@pytest.mark.parametrize("K,dt,n", [
+    (K, 0.01, n) for K in (1, 31, 256, 257) for n in (1, 2)
+] + [(1, 0.002, 10)])
+def test_kernel_matches_plain_on_card(cuda_device, K, dt, n, with_payload):
+    """The warp-design kernels K1 and K2 equal their plain version exactly
+    (the same operations in the same order, built with -fmad=false): at
+    one rollout, a partial warp group (K=31), the MPPI paths' K=256, a
+    ragged last block (K=257) and the plant step.  Payloads U(0, 3) kg."""
     m = load_go1("flat", device=cuda_device)
     qp, qv, ct = _random_rows(m, K, cuda_device)
-    key = cuda_step.launch_key(K, n)
+    extra = {}
+    if with_payload:
+        _, payload = random_modes(m, K, False, True)
+        extra["payload"] = torch.from_numpy(payload).to(cuda_device)
+    key = cuda_step.launch_key(K, n, False, with_payload)
     before = cuda_step.LAUNCHES[key]
-    kp, kv = cuda_step.build_cuda_substep(m, dt, n, device=cuda_device)(
-        qp, qv, ct)
-    pp, pv = cuda_step.build_plain_substep(m, dt, n)(qp, qv, ct)
+    kp, kv = cuda_step.build_cuda_substep(
+        m, dt, n, device=cuda_device, with_payload=with_payload)(
+        qp, qv, ct, **extra)
+    pp, pv = cuda_step.build_plain_substep(m, dt, n, False, with_payload)(
+        qp, qv, ct, **extra)
     torch.cuda.synchronize()
     assert cuda_step.LAUNCHES[key] == before + 1
     assert torch.isfinite(kp).all() and torch.isfinite(kv).all()
-    assert (kp - pp).abs().max().item() <= 1e-4
-    assert (kv - pv).abs().max().item() <= 1e-3
+    assert torch.equal(kp, pp) and torch.equal(kv, pv)
 
 
 @pytest.mark.gpu
@@ -65,6 +76,7 @@ def test_kernel_rejects_cpu_tensors(cuda_device):
     ("opendog", 256, 0.01, 2, "per_geom", False),  # K4: per-geom MPPI
     ("opendog", 1, 0.002, 10, "per_geom", False),  # K4: terrain plant
     ("opendog", 4096, 0.002, 10, True, True),      # K2 + K3: batch
+    ("opendog", 256, 0.01, 2, "per_geom", True),   # K2 + K4: per-geom
 ])
 def test_mode_kernel_matches_plain_on_card(cuda_device, robot, K, dt, n,
                                            with_plane, with_payload):

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: opendog_tpu_torch and chip_smoke.py import
-neither JAX (nor flax / optax) nor anything of the JAX package."""
+"""The PyTorch port stands alone: opendog_tpu_torch, chip_smoke.py and the
+port's scripts (scripts/torch_*.py) import neither JAX (nor flax / optax)
+nor anything of the JAX package."""
 import os
 import re
 import subprocess
@@ -15,6 +16,9 @@ PKG = os.path.join(REPO, "opendog_tpu_torch")
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    scripts = os.path.join(REPO, "scripts")
+    out += [os.path.join(scripts, f) for f in os.listdir(scripts)
+            if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

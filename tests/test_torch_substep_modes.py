@@ -38,6 +38,7 @@ MODES = {  # name: (with_plane, with_payload)
     "pergeom": ("per_geom", False),
     "payload": (False, True),
     "plane_payload": (True, True),
+    "pergeom_payload": ("per_geom", True),
 }
 PORT = {"go1": lambda: assets.load_go1("flat", device="cpu"),
         "opendog": lambda: assets.load_opendog("flat", device="cpu"),
@@ -239,6 +240,8 @@ def _host_library():
     ("mini", 0.002, 1, "pergeom"),
     ("mini", 0.002, 1, "payload"),
     ("mini", 0.002, 1, "plane_payload"),
+    ("opendog", 0.01, 2, "pergeom_payload"),  # per-geom terrain + payload
+    ("mini", 0.002, 1, "pergeom_payload"),
 ])
 def test_kernel_arithmetic_host_build_matches_plain(robot, dt, n, mode):
     """The kernels' substep arithmetic in each mode, compiled by g++,
@@ -276,8 +279,8 @@ def test_kernel_arithmetic_host_build_matches_plain(robot, dt, n, mode):
 
 def test_step_checks_planes_and_payloads():
     """A plane passed to a flat step, a missing plane or payload, a wrong
-    number of plane rows, an unknown mode and a mode without a kernel all
-    raise; on the CPU no mode launches anything."""
+    number of plane rows and an unknown mode all raise; per-geom planes
+    with a payload need both; on the CPU no mode launches anything."""
     m = PORT["mini"]()
     K = 4
     qp, qv, ct = (torch.from_numpy(a) for a in random_batch(m, K))
@@ -302,11 +305,15 @@ def test_step_checks_planes_and_payloads():
     with pytest.raises(ValueError, match="with_plane"):
         cuda_step.build_cuda_substep(m, 0.002, device="cpu",
                                      with_plane="trunk")
-    with pytest.raises(ValueError, match="not instantiated"):
-        cuda_step.build_cuda_substep(m, 0.002, device="cpu",
-                                     with_plane="per_geom", with_payload=True)
+    pg_loaded = cuda_step.build_cuda_substep(m, 0.002, device="cpu",
+                                             with_plane="per_geom",
+                                             with_payload=True)
+    assert pg_loaded.name == "substep_pergeom_payload"
+    with pytest.raises(ValueError, match="needs a payload"):
+        pg_loaded(qp, qv, ct, torch.zeros(4 * m.ngeom, K))
     before = dict(cuda_step.LAUNCHES)
     pg(qp, qv, ct, torch.zeros(4 * m.ngeom, K))
+    pg_loaded(qp, qv, ct, torch.zeros(4 * m.ngeom, K), torch.zeros(1, K))
     assert dict(cuda_step.LAUNCHES) == before
     assert cuda_step.launch_key(256, 2, "per_geom") == \
         "substep_pergeom K=256 x2"

@@ -1,0 +1,182 @@
+"""The warp design of the substep kernels (csrc/substep_warp.cuh, which runs
+kernels K1 and K2 on the card) on the CPU, through its g++ host build: each
+phase runs as a loop over the 32 lanes, in order or in reverse, on a
+workspace filled with NaN before every substep.
+
+It must equal the one-thread design (csrc/substep_core.cuh, the same host
+library) bit for bit, in both lane orders: every float is made by the same
+operations in the same order, only by another lane, and no phase reads
+what another lane writes in the same phase.  Both are held against the plain
+PyTorch version, and the model table's index lists against the arrow pairs
+and the ancestor mask.  The kernels themselves are compared with the plain
+version on the card by tests/test_torch_gpu.py and chip_smoke.py.
+"""
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from opendog_tpu_torch import assets
+from opendog_tpu_torch.ops import build, cuda_step, scalar_core
+from chip_smoke import random_batch, random_modes
+
+torch.set_num_threads(1)
+
+# host build against the plain version: a float32 reference of the same
+# arithmetic (libm's sinf / cosf against PyTorch's), as in
+# tests/test_torch_substep_modes.py
+TIGHT = dict(qpos=1e-5, qvel=1e-4)
+MODES = {  # name: (with_plane, with_payload)
+    "flat": (False, False), "payload": (False, True),
+    # not yet on the warp design on the card; their branches of the warp
+    # header are held here all the same
+    "plane": (True, False), "pergeom": ("per_geom", False),
+    "plane_payload": (True, True), "pergeom_payload": ("per_geom", True),
+}
+CARD = ("flat", "payload")  # the modes whose kernels run the warp design
+ROBOTS = {"go1": lambda: assets.load_go1("flat", device="cpu"),
+          "opendog": lambda: assets.load_opendog("flat", device="cpu"),
+          "mini": lambda: assets.load_mini(device="cpu")}
+STEPS = [(0.01, 1), (0.01, 2), (0.002, 1), (0.002, 2)]  # (dt, n_substeps)
+K = 8
+
+
+@pytest.fixture(scope="module")
+def host_lib():
+    """g++ build of csrc/substep_host.cpp (a test aid: no entry point of
+    the package reaches it)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    built = build.build_library("substep_host", "substep_host.cpp", "g++",
+                                build.GXX_FLAGS)
+    lib = ctypes.CDLL(built.path)
+    lib.substep_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    lib.substep_host.restype = ctypes.c_int
+    lib.substep_host_warp.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    lib.substep_host_warp.restype = ctypes.c_int
+    return lib
+
+
+def _inputs(m, mode, seed=1):
+    """chip_smoke.py's random states with the feet on the ground, random
+    planes near z = 0 and payloads U(0, 3) kg: (qpos, qvel, ctrl, plane,
+    payload), torch (rows, K) or None."""
+    with_plane, with_payload = MODES[mode]
+    arrays = (random_batch(m, K, seed, on_ground=True)
+              + random_modes(m, K, with_plane, with_payload, seed))
+    return [None if a is None else torch.from_numpy(a) for a in arrays]
+
+
+def _host(lib, m, dt, n, mode, args, design):
+    """One host call: design "thread", "warp" or "warp_reversed"."""
+    table = cuda_step.substep_table(m, dt)
+    qp, qv, ct, plane, payload = args
+    out_p, out_v = torch.empty_like(qp), torch.empty_like(qv)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with_plane, with_payload = MODES[mode]
+    call = (ctypes.addressof(table), qp.data_ptr(), qv.data_ptr(),
+            ct.data_ptr(), ptr(plane), ptr(payload), out_p.data_ptr(),
+            out_v.data_ptr(), K, n, cuda_step._PLANE_CODE[with_plane],
+            int(with_payload))
+    if design == "thread":
+        rc = lib.substep_host(*call)
+    else:
+        rc = lib.substep_host_warp(*call, int(design == "warp_reversed"))
+    assert rc == 0
+    return out_p.numpy(), out_v.numpy()
+
+
+@pytest.mark.parametrize("design", ["warp", "warp_reversed"])
+@pytest.mark.parametrize("dt,n", STEPS)
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("robot", sorted(ROBOTS))
+def test_warp_design_equals_one_thread_design_bit_for_bit(host_lib, robot,
+                                                          mode, dt, n,
+                                                          design):
+    """K=8 at 10 ms and 2 ms, one and two substeps, in every mode: every
+    qpos and qvel of the warp design, in either lane order, equals the
+    one-thread design's exactly, and is finite."""
+    m = ROBOTS[robot]()
+    args = _inputs(m, mode)
+    want = _host(host_lib, m, dt, n, mode, args, "thread")
+    got = _host(host_lib, m, dt, n, mode, args, design)
+    assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("robot,dt,n", [
+    (robot, dt, n) for robot in sorted(ROBOTS) for dt, n in STEPS
+    # mini at 10 ms (its own timestep is 2 ms): g++ and PyTorch read 1.2e-4
+    # qvel apart after two substeps, in both designs alike
+    if not (robot == "mini" and dt == 0.01)])
+@pytest.mark.parametrize("mode", CARD)
+def test_warp_design_matches_plain(host_lib, robot, mode, dt, n):
+    """The warp design against the plain version on the same inputs.
+    Tolerance: TIGHT plus four times what the plain version's own result
+    moves, rollout by rollout, under a 1e-7 relative change of qvel, as in
+    tests/test_torch_substep_modes.py: one ulp of libm's sinf / cosf
+    against PyTorch's is magnified by contact states at 10 ms."""
+    m = ROBOTS[robot]()
+    args = _inputs(m, mode)
+    plain = cuda_step.build_plain_substep(m, dt, n, *MODES[mode])
+    want = plain(*args)
+    nudged = plain(args[0], args[1] * (1 + 1e-7), *args[2:])
+    got = _host(host_lib, m, dt, n, mode, args, "warp")
+    for name, g, w, v in zip(("qpos", "qvel"), got, want, nudged):
+        spread = (w - v).abs().max(dim=0).values.numpy()
+        err = np.abs(g - w.numpy()).max(axis=0)
+        assert (err <= TIGHT[name] + 4 * spread).all(), (name, err, spread)
+
+
+@pytest.mark.parametrize("robot", sorted(ROBOTS))
+def test_table_index_lists(robot):
+    """The warp design's lists in the model table: the body chains cover
+    every body below the base once, each parent before its child; the pairs
+    are scalar_core.arrow_pairs with i <= j; each dof's spheres are exactly
+    the spheres whose body it moves (the ancestor mask), in increasing
+    order, and each pair's spheres (those of its larger dof) exactly the
+    spheres that both of its dofs move; each dof sits at dof_pos in the
+    ancestor-dof list of every body it moves."""
+    m = ROBOTS[robot]()
+    t = cuda_step.substep_table(m, m.timestep)
+    c, _ = cuda_step.table_layout()
+    anc = m.numpy("ancestor_mask")
+    parent = [int(p) for p in m.body_parent]
+    geom_body = [int(b) for b in m.geom_body_static]
+    chains = [list(t.bchain_body[k * c["SC_BCHLEN_MAX"]:
+                                 k * c["SC_BCHLEN_MAX"] + t.bchain_len[k]])
+              for k in range(t.n_bchains)]
+    assert sorted(b for ch in chains for b in ch) == list(range(1, m.nbody))
+    for ch in chains:
+        assert parent[ch[0]] == 0
+        assert all(parent[b] == a for a, b in zip(ch, ch[1:]))
+    pairs = scalar_core.arrow_pairs(m)
+    assert t.npair == len(pairs)
+    assert list(zip(t.pair_i[:t.npair], t.pair_j[:t.npair])) == pairs
+    spheres = {}
+    for j in range(m.nv):
+        start = t.dof_sph_off[j]
+        spheres[j] = list(t.dof_sph[start:start + t.dof_nsph[j]])
+        assert spheres[j] == [g for g in range(m.ngeom)
+                              if anc[geom_body[g], j] > 0]
+        for b in range(m.nbody):
+            dofs = [d for d in range(m.nv) if anc[b, d] > 0]
+            if j in dofs:
+                assert dofs.index(j) == t.dof_pos[j]
+    for i, j in pairs:
+        assert spheres[j] == [g for g in range(m.ngeom)
+                              if anc[geom_body[g], i] > 0
+                              and anc[geom_body[g], j] > 0]
+
+
+def test_table_refuses_a_branching_body_tree():
+    """A body with two children below the base has no serial chain: the
+    table raises, as for the other limits of the kernels."""
+    m = ROBOTS["go1"]()
+    parent = list(m.body_parent)
+    parent[3] = 1  # body 1 then carries bodies 2 and 3
+    with pytest.raises(ValueError, match="serial chains"):
+        cuda_step.substep_table(m.replace(body_parent=tuple(parent)),
+                                m.timestep)
