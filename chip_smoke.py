@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which raises on failure (exit code != 0, no "ok" line):
   device   - a CUDA card must be present; prints its name and power limit;
   build    - builds the substep kernels (csrc/, one nvcc call, six
-             instantiations: flat and payload on the warp design; plane,
-             pergeom, plane_payload and pergeom_payload on the one-thread
+             instantiations: flat, payload, plane and pergeom on the warp
+             design; plane_payload and pergeom_payload on the one-thread
              design) for sm_90a and prints the ptxas report of each and the
              warp kernels' rollouts and dynamic shared memory per block;
   check    - every kernel against its plain PyTorch version on the card at
@@ -19,8 +19,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              with their own per-geom planes (K=256 x 2, K=1 x 10);
              plane_payload on the domain-randomised batch (K=4096 x 10);
              pergeom_payload on the terrain states with payloads U(0, 3) kg
-             (K=256 x 2); and, check only, flat and payload at a ragged
-             K=257 x 2 (the last block of the warp kernels part full);
+             (K=256 x 2); and, check only, flat, payload, plane and
+             pergeom at a ragged K=257 x 2 (the last block of the warp
+             kernels part full);
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc for 250 ticks: trunk in (0.12, 0.5) m, finite, forward
@@ -287,6 +288,12 @@ class Smoke:
                    random_batch(go1, Kr) + none, keep=False)
         self.check("payload ragged", go1, RAGGED, False, True,
                    random_batch(go1, Kr) + random_modes(go1, Kr, False, True),
+                   keep=False)
+        self.check("plane ragged", dog_t, RAGGED, True, False,
+                   random_batch(dog_t, Kr, on_ground=True)
+                   + random_modes(dog_t, Kr, True), keep=False)
+        self.check("pergeom ragged", dog_t, RAGGED, "per_geom", False,
+                   terrain_batch(dog_t, self.terrain, Kr) + (None,),
                    keep=False)
 
     # -- paths ------------------------------------------------------------
@@ -744,8 +751,9 @@ def main():
     lib, built = cuda_step.cuda_library()
     log(f"[build] {built.path} built in {built.seconds:.1f} s; warp kernels: "
         f"{lib.substep_warps_per_block()} rollouts per block, "
-        f"{lib.substep_warp_smem_bytes()} B of dynamic shared memory per "
-        "block")
+        f"{lib.substep_warp_smem_bytes(0)} B (flat modes) and "
+        f"{lib.substep_warp_smem_bytes(1)} B (plane modes) of dynamic shared "
+        "memory per block")
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "stack", "Compiling")):
             log(f"[build] {line.strip()}")

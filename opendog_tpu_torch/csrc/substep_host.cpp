@@ -40,9 +40,9 @@ static void run_warp(const SubstepModel* m, const float* qpos,
                      const float* qvel, const float* ctrl, const float* plane,
                      const float* payload, float* qpos_out, float* qvel_out,
                      int K, int n_substeps, bool rev) {
-  SubstepWork w;
+  SubstepWorkOf<PLANE> w;
   const size_t carried = offsetof(SubstepWork, m0);
-  const size_t rest = (sizeof(SubstepWork) - carried) / sizeof(float);
+  const size_t rest = (sizeof(w) - carried) / sizeof(float);
   float* scratch = reinterpret_cast<float*>(reinterpret_cast<char*>(&w) + carried);
   const int lane = 0;  // unused on the host: SC_PHASE loops over the lanes
   for (int k = 0; k < K; ++k) {

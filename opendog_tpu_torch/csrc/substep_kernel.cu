@@ -9,40 +9,44 @@
 //   substep_payload         K2  z = 0, a point mass at the trunk origin per
 //                               rollout (payload (1, K))          (warp)
 //   substep_plane           K3  one contact plane per rollout (plane (4, K))
+//                                                                 (warp)
 //   substep_pergeom         K4  one plane per collision geom and rollout
-//                               (plane (4 * ngeom, K))
-//   substep_plane_payload   K2 + K3 (the domain-randomised batch)
-//   substep_pergeom_payload K2 + K4
-// Two designs: the flat modes run the warp design of substep_warp.cuh, the
-// others still the one-thread design of substep_core.cuh.  Both compute the
-// same floats in the same order.
+//                               (plane (4 * ngeom, K))            (warp)
+//   substep_plane_payload   K2 + K3 (the domain-randomised batch) (thread)
+//   substep_pergeom_payload K2 + K4                               (thread)
+// Two designs: K1-K4 run the warp design of substep_warp.cuh, the two plane
+// modes with a payload still the one-thread design of substep_core.cuh.
+// Both compute the same floats in the same order.
 //
-// Warp design (K1, K2).  Warp w of a block owns rollout blockIdx.x * W + w
+// Warp design (K1-K4).  Warp w of a block owns rollout blockIdx.x * W + w
 // (W = SC_WARPS rollouts per block) and its 32 lanes split that rollout's
 // substep into phases with a __syncwarp() between two (substep_warp.cuh
-// lists them).  Each rollout's working arrays (SubstepWork, ~20 KB) live in
-// dynamic shared memory after the block's copy of the model tables
-// (SubstepModel, ~14 KB), not in local memory: 91 KB per block at W = 4,
-// two blocks per SM.  A warp whose rollout is >= K helps copy the table and
-// does nothing else.  What bounds it on an H100:
-// scalar float32 work in short dependency chains on a few hundred bytes of
-// state per rollout; the matrices are 3x3 and 6x6, at most 9 dofs per
-// sphere, so wgmma and TMA do not apply (no 64-row tiles, nothing worth a
-// bulk copy).  The levers are shared memory in place of local memory, more
-// SMs busy at the MPPI paths' K = 256 (256 warps instead of 2 blocks of 128
-// threads), and a shorter critical path per substep: a base pair's contact
-// sum over every sphere (78 for Go1) is its longest serial stretch.
+// lists them).  Each rollout's working arrays live in dynamic shared memory
+// after the block's copy of the model tables (SubstepModel, ~14 KB), not in
+// local memory: SubstepWork (~20 KB) in the flat modes, 93 KB per block at
+// W = 4; SubstepWorkPlane (~23 KB, J.n of every J row besides) in the plane
+// modes, 107 KB per block; two blocks per SM either way.  The lane plane or
+// the per-geom planes are loaded into the workspace once per launch.  A warp
+// whose rollout is >= K helps copy the table and does nothing else.  What
+// bounds it on an H100: scalar float32 work in short dependency chains on a
+// few hundred bytes of state per rollout; the matrices are 3x3 and 6x6, at
+// most 9 dofs per sphere, so wgmma and TMA do not apply (no 64-row tiles,
+// nothing worth a bulk copy).  The levers are shared memory in place of
+// local memory, more SMs busy at the MPPI paths' K = 256 (256 warps instead
+// of 2 blocks of 128 threads), and a shorter critical path per substep: a
+// base pair's contact sum over every sphere (78 for Go1, 24 for OpenDOG) is
+// its longest serial stretch, and in the plane modes each of its terms
+// reads J.n instead of making it.
 //
-// One-thread design (K3, K4 and the plane + payload modes).  Thread k owns
-// rollout k: it loads column k of qpos (nq, K), qvel (nv, K) and ctrl
-// (nu, K) (coalesced across the warp), runs n_substeps substeps of
-// substep_core.cuh in registers and local memory (a ~7.5 KB stack frame),
-// and writes column k of the outputs.  The lane plane and the payload are
-// loaded once per launch; the per-geom planes are read from device memory
-// inside the contact loop, column k of each row.  The model tables are copied
-// into shared memory once per block.  At K = 256 this fills 2 of the 132 SMs
-// and the K = 1 plant is one thread; these modes move to the warp design in
-// later changes.
+// One-thread design (the plane + payload modes).  Thread k owns rollout k:
+// it loads column k of qpos (nq, K), qvel (nv, K) and ctrl (nu, K)
+// (coalesced across the warp), runs n_substeps substeps of substep_core.cuh
+// in registers and local memory (a ~7.5 KB stack frame), and writes column
+// k of the outputs.  The lane plane and the payload are loaded once per
+// launch; the per-geom planes are read from device memory inside the
+// contact loop, column k of each row.  The model tables are copied into
+// shared memory once per block.  At K = 256 this fills 2 of the 132 SMs;
+// these modes move to the warp design in later changes.
 //
 // Both designs loop over the substeps inside the kernel, so a 10-substep
 // plant step (K = 1) is one launch.
@@ -53,9 +57,10 @@
 
 #define SC_BLOCK 128  // threads per block of the one-thread design
 
-// Rollouts (warps) per block of the warp design: 4 was the fastest of 1, 2
-// and 4 at both flat path shapes on an H100 (PERF.md, measured with
-// scripts/torch_warp_sweep.py, which overrides it to measure).
+// Rollouts (warps) per block of the warp design: of 1, 2, 4 and 8, 4 was
+// the fastest at the K = 256 path shapes of K1-K4 on an H100 and within
+// 1.2% of 8 at K = 1 (PERF.md, measured with scripts/torch_warp_sweep.py,
+// which overrides it to measure).
 #ifndef SC_WARPS
 #define SC_WARPS 4
 #endif
@@ -112,8 +117,6 @@ __device__ __forceinline__ void substep_body(SC_ARGS) {
     substep_body<PLANE, PAYLOAD>(SC_PASS);                                \
   }
 
-SC_KERNEL(substep_plane, SC_PLANE_LANE, false)
-SC_KERNEL(substep_pergeom, SC_PLANE_GEOM, false)
 SC_KERNEL(substep_plane_payload, SC_PLANE_LANE, true)
 SC_KERNEL(substep_pergeom_payload, SC_PLANE_GEOM, true)
 
@@ -123,7 +126,10 @@ SC_KERNEL(substep_pergeom_payload, SC_PLANE_GEOM, true)
 
 // dynamic shared memory of a block: the table, then SC_WARPS workspaces
 #define SC_TABLE_BYTES ((sizeof(SubstepModel) + 15) / 16 * 16)
-#define SC_WARP_SMEM (SC_TABLE_BYTES + SC_WARPS * sizeof(SubstepWork))
+template <int PLANE>
+constexpr size_t sc_warp_smem() {
+  return SC_TABLE_BYTES + SC_WARPS * sizeof(SubstepWorkOf<PLANE>);
+}
 
 template <int PLANE, bool PAYLOAD>
 __device__ __forceinline__ void substep_warp_body(SC_ARGS) {
@@ -139,8 +145,8 @@ __device__ __forceinline__ void substep_warp_body(SC_ARGS) {
   const int warp = threadIdx.x / SC_LANES, lane = threadIdx.x % SC_LANES;
   const int k = blockIdx.x * SC_WARPS + warp;
   if (k >= K) return;  // the whole warp: the ragged tail of the last block
-  SubstepWork& w =
-      reinterpret_cast<SubstepWork*>(sc_smem + SC_TABLE_BYTES)[warp];
+  SubstepWorkOf<PLANE>& w =
+      reinterpret_cast<SubstepWorkOf<PLANE>*>(sc_smem + SC_TABLE_BYTES)[warp];
   scw_load<PLANE, PAYLOAD>(sm, w, lane, qpos, qvel, ctrl, plane, payload, K,
                            k);
   __syncwarp();
@@ -157,6 +163,8 @@ __device__ __forceinline__ void substep_warp_body(SC_ARGS) {
 
 SC_WARP_KERNEL(substep_flat, SC_PLANE_FLAT, false)
 SC_WARP_KERNEL(substep_payload, SC_PLANE_FLAT, true)
+SC_WARP_KERNEL(substep_plane, SC_PLANE_LANE, false)
+SC_WARP_KERNEL(substep_pergeom, SC_PLANE_GEOM, false)
 
 // ---------------------------------------------------------------------------
 // C interface
@@ -164,15 +172,21 @@ SC_WARP_KERNEL(substep_payload, SC_PLANE_FLAT, true)
 
 extern "C" int substep_model_size() { return (int)sizeof(SubstepModel); }
 
-// rollouts per block and dynamic shared memory per block [B] of the warp
-// kernels
+// rollouts per block of the warp kernels, and dynamic shared memory per
+// block [B] of the warp kernel of plane_mode = SC_PLANE_* (0 for another)
 extern "C" int substep_warps_per_block() { return SC_WARPS; }
-extern "C" int substep_warp_smem_bytes() { return (int)SC_WARP_SMEM; }
+extern "C" int substep_warp_smem_bytes(int plane_mode) {
+  if (plane_mode == SC_PLANE_FLAT) return (int)sc_warp_smem<SC_PLANE_FLAT>();
+  if (plane_mode == SC_PLANE_LANE) return (int)sc_warp_smem<SC_PLANE_LANE>();
+  if (plane_mode == SC_PLANE_GEOM) return (int)sc_warp_smem<SC_PLANE_GEOM>();
+  return 0;
+}
 
 typedef void (*SubstepKernel)(SC_ARGS);
 
+template <int PLANE>
 static int launch_warp(SubstepKernel kern, SC_ARGS, cudaStream_t s) {
-  const size_t smem = SC_WARP_SMEM;
+  const size_t smem = sc_warp_smem<PLANE>();
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t e = cudaFuncSetAttribute(
         (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -203,13 +217,15 @@ extern "C" int substep_launch(const void* model_, const float* qpos,
   const SubstepModel* model = (const SubstepModel*)model_;
   cudaStream_t s = (cudaStream_t)stream;
   if (plane_mode == SC_PLANE_FLAT)
-    return launch_warp(with_payload ? substep_payload : substep_flat,
-                       SC_PASS, s);
+    return launch_warp<SC_PLANE_FLAT>(
+        with_payload ? substep_payload : substep_flat, SC_PASS, s);
   if (plane_mode == SC_PLANE_LANE)
-    return launch_thread(with_payload ? substep_plane_payload : substep_plane,
-                         SC_PASS, s);
+    return with_payload
+               ? launch_thread(substep_plane_payload, SC_PASS, s)
+               : launch_warp<SC_PLANE_LANE>(substep_plane, SC_PASS, s);
   if (plane_mode == SC_PLANE_GEOM)
-    return launch_thread(
-        with_payload ? substep_pergeom_payload : substep_pergeom, SC_PASS, s);
+    return with_payload
+               ? launch_thread(substep_pergeom_payload, SC_PASS, s)
+               : launch_warp<SC_PLANE_GEOM>(substep_pergeom, SC_PASS, s);
   return (int)cudaErrorInvalidValue;
 }

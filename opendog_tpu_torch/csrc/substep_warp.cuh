@@ -18,7 +18,8 @@
 //   trunk      one lane per component of (fsub, IA, CB, Cm) of the base:
 //              the chain heads added in descending body order;
 //   dof_geom   per dof: bias, actuator and limit terms of qfrc, ddiag, F;
-//              per sphere: its contact scalars and J rows (workspace);
+//              per sphere: its contact scalars and J rows (workspace) and,
+//              in the plane modes, each row's J.n;
 //   pair       per arrow pair: M, the contact sum of D over its spheres in
 //              increasing order, A; per dof: the contact terms of qfrc over
 //              its spheres in increasing order;
@@ -31,8 +32,10 @@
 //   integ      per dof: NaN firewall, velocity clip, position update;
 //   quat       lane 0: the base quaternion.
 // The longest serial stretch is a base pair's contact sum over all spheres
-// (78 for Go1), next to the 6x6 Cholesky on lane 0.
+// (78 for Go1, 24 for OpenDOG), next to the 6x6 Cholesky on lane 0.
 #pragma once
+
+#include <type_traits>
 
 #include "substep_core.cuh"
 
@@ -57,6 +60,17 @@ struct SubstepWork {
   float invA[SC_G_MAX][6][SC_NCH_MAX], invb[SC_G_MAX][SC_NCH_MAX];
   float Ss[6][6], yb[6], xb[6];
 };
+
+// The plane modes' working arrays: J.n of each sphere's J rows besides
+// (3,456 B that the flat modes do without).
+struct SubstepWorkPlane : SubstepWork {
+  float Jn[SC_NG_MAX][SC_ANC_MAX];
+};
+
+// the working arrays of a ground mode
+template <int PLANE>
+using SubstepWorkOf =
+    typename std::conditional<PLANE == SC_PLANE_FLAT, SubstepWork, SubstepWorkPlane>::type;
 
 // Runs the statement for every lane: on the card each thread is its own lane and
 // the warp synchronises after it; on the host a loop over the lanes, in
@@ -316,9 +330,10 @@ SC_HD void scw_trunk(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // dof `lane`: qfrc's bias, actuator and limit terms, ddiag, F; then the
-// contact scalars and J rows of spheres lane, lane + 32, ...
+// contact scalars and J rows of spheres lane, lane + 32, ... (and, in the
+// plane modes, each row's J.n, which the pair phase reads)
 template <int PLANE>
-SC_HD void scw_dof_geom(const SubstepModel& m, SubstepWork& w, int lane) {
+SC_HD void scw_dof_geom(const SubstepModel& m, SubstepWorkOf<PLANE>& w, int lane) {
   const int j = lane;
   if (j < m.nv) {
     const int b = m.dof_body[j];
@@ -390,27 +405,25 @@ SC_HD void scw_dof_geom(const SubstepModel& m, SubstepWork& w, int lane) {
     w.dn[g] = m.geom_d[g] * active;
     w.kap[g] = kappa * active;
     const int* dofs = m.body_dofs + b * SC_NV_MAX;
+    const float* n = w.plane + (PLANE == SC_PLANE_GEOM ? 4 * g : 0);
     for (int d = 0; d < m.body_ndof[b]; ++d) {
       const float* Sj = w.S[dofs[d]];
+      float Jd[3];
       sc_cross(Sj, r, t);
-      for (int k = 0; k < 3; ++k) w.J[g][d][k] = Sj[3 + k] + t[k];
+      for (int k = 0; k < 3; ++k) Jd[k] = w.J[g][d][k] = Sj[3 + k] + t[k];
+      if constexpr (PLANE != SC_PLANE_FLAT)
+        w.Jn[g][d] = Jd[0] * n[0] + Jd[1] * n[1] + Jd[2] * n[2];
     }
   }
 }
 
-// J.n of sphere g's row d (the plane modes)
-template <int PLANE>
-SC_HD float scw_jn(const SubstepWork& w, int g, int d) {
-  const float* n = w.plane + (PLANE == SC_PLANE_GEOM ? 4 * g : 0);
-  const float* Jd = w.J[g][d];
-  return Jd[0] * n[0] + Jd[1] * n[1] + Jd[2] * n[2];
-}
-
 // arrow pairs lane, lane + 32, ...: M, D's contact sum, A; dof
 // SC_LANES - 1 - lane (the heavy base dofs go to the lanes of light pairs):
-// qfrc's contact terms
+// qfrc's contact terms.  A base pair's sum over every sphere is the
+// longest serial stretch; in the plane modes its terms read J.n from the
+// sphere phase instead of making it twice more each.
 template <int PLANE>
-SC_HD void scw_pair(const SubstepModel& m, SubstepWork& w, int lane) {
+SC_HD void scw_pair(const SubstepModel& m, SubstepWorkOf<PLANE>& w, int lane) {
   const float dt = m.dt;
   for (int p = lane; p < m.npair; p += SC_LANES) {
     const int i = m.pair_i[p], j = m.pair_j[p];
@@ -425,8 +438,8 @@ SC_HD void scw_pair(const SubstepModel& m, SubstepWork& w, int lane) {
       const float* J1 = w.J[g][d1];
       const float* J2 = w.J[g][d2];
       float val;
-      if (PLANE != SC_PLANE_FLAT) {
-        const float jn1 = scw_jn<PLANE>(w, g, d1), jn2 = scw_jn<PLANE>(w, g, d2);
+      if constexpr (PLANE != SC_PLANE_FLAT) {
+        const float jn1 = w.Jn[g][d1], jn2 = w.Jn[g][d2];
         const float jj = J1[0] * J2[0] + J1[1] * J2[1] + J1[2] * J2[2];
         val = w.dn[g] * jn1 * jn2 + w.kap[g] * (jj - jn1 * jn2);
       } else {
@@ -445,7 +458,12 @@ SC_HD void scw_pair(const SubstepModel& m, SubstepWork& w, int lane) {
   float qf = w.qfrc[j];
   for (int s = 0; s < m.dof_nsph[j]; ++s) {
     const int g = sph[s];
-    const float jz = PLANE != SC_PLANE_FLAT ? scw_jn<PLANE>(w, g, d) : w.J[g][d][2];
+    float jz;
+    if constexpr (PLANE != SC_PLANE_FLAT) {
+      jz = w.Jn[g][d];
+    } else {
+      jz = w.J[g][d][2];
+    }
     qf = qf + jz * w.fa[g];
   }
   w.qfrc[j] = qf;
@@ -638,8 +656,8 @@ SC_HD void scw_quat(const SubstepModel& m, SubstepWork& w, int lane) {
 // ---------------------------------------------------------------------------
 
 template <int PLANE, bool PAYLOAD>
-SC_HD void sc_warp_substep(const SubstepModel& m, SubstepWork& w, int lane,
-                           bool rev) {
+SC_HD void sc_warp_substep(const SubstepModel& m, SubstepWorkOf<PLANE>& w,
+                           int lane, bool rev) {
   (void)lane;
   (void)rev;
   SC_PHASE(scw_fk_base(w, lane));

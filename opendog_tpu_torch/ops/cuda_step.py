@@ -4,10 +4,11 @@ Port of ``opendog_tpu/ops/pallas_step.py`` (``build_pallas_substep``, the
 ``pl.pallas_call`` at line 115) in each of its modes: flat ground (K1), a
 per-lane payload (K2), a per-lane contact plane (K3), per-geom planes (K4),
 and each plane mode with a payload.  The kernels (``csrc/substep_kernel.cu``)
-run over a table of model constants built here: the flat modes one warp per
-rollout (``csrc/substep_warp.cuh``), the others one thread per rollout
-(``csrc/substep_core.cuh``); see the note at the top of the ``.cu`` file for
-their design and what bounds them.
+run over a table of model constants built here: K1-K4 one warp per rollout
+(``csrc/substep_warp.cuh``), the two plane modes with a payload one thread
+per rollout (``csrc/substep_core.cuh``); ``KERNEL_DESIGNS`` says which, and
+the note at the top of the ``.cu`` file gives their design and what bounds
+them.
 
 Layout as in the JAX package: ``qpos (nq, K)``, ``qvel (nv, K)``,
 ``ctrl (nu, K)``, ``plane (4, K)`` or ``(4 * ngeom, K)``, ``payload (1, K)``,
@@ -33,8 +34,7 @@ from ..physics.model import JNT_FREE, JNT_HINGE, JNT_NONE, Model
 from . import build, scalar_core
 
 # The kernel of each mode (with_plane, with_payload), named as its entry
-# point in csrc/substep_kernel.cu, and its design: "warp" (one warp per
-# rollout) or "thread" (one thread per rollout).
+# point in csrc/substep_kernel.cu.
 KERNEL_NAMES = {
     (False, False): "substep_flat",                     # K1
     (False, True): "substep_payload",                   # K2
@@ -43,8 +43,17 @@ KERNEL_NAMES = {
     (True, True): "substep_plane_payload",              # K2 + K3
     ("per_geom", True): "substep_pergeom_payload",      # K2 + K4
 }
-KERNEL_DESIGNS = {name: "warp" if not plane else "thread"
-                  for (plane, _), name in KERNEL_NAMES.items()}
+# The design of each kernel, as substep_kernel.cu instantiates it: "warp"
+# (SC_WARP_KERNEL, one warp per rollout) or "thread" (SC_KERNEL, one
+# thread per rollout).
+KERNEL_DESIGNS = {
+    "substep_flat": "warp",
+    "substep_payload": "warp",
+    "substep_plane": "warp",
+    "substep_pergeom": "warp",
+    "substep_plane_payload": "thread",
+    "substep_pergeom_payload": "thread",
+}
 _PLANE_CODE = {False: 0, True: 1, "per_geom": 2}  # SC_PLANE_* of the header
 
 # Launches of the kernels, keyed by kernel and shape
@@ -282,10 +291,11 @@ def load_library(path: str) -> ctypes.CDLL:
     """Load a build of ``csrc/substep_kernel.cu`` and declare its C
     interface."""
     lib = ctypes.CDLL(path)
-    for fn in (lib.substep_model_size, lib.substep_warps_per_block,
-               lib.substep_warp_smem_bytes):
+    for fn in (lib.substep_model_size, lib.substep_warps_per_block):
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    lib.substep_warp_smem_bytes.argtypes = [ctypes.c_int]  # plane mode
+    lib.substep_warp_smem_bytes.restype = ctypes.c_int
     lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.substep_launch.restype = ctypes.c_int

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Hold the flat-ground substep kernels (K1 ``substep_flat``, K2
-``substep_payload``) of two checkouts of the PyTorch port against each other
-on one CUDA card: their outputs and their times.
+"""Hold the warp-design substep kernels (K1 ``substep_flat``, K2
+``substep_payload``, K3 ``substep_plane``, K4 ``substep_pergeom``) of two
+checkouts of the PyTorch port against each other on one CUDA card: their
+outputs and their times.
 
 Usage, from the root of a checkout, with another checkout (e.g. the parent
 commit unpacked with ``git archive``) at OTHER:
@@ -9,18 +10,25 @@ commit unpacked with ``git archive``) at OTHER:
     python3 scripts/torch_kernel_ab.py OTHER
 
 Each checkout runs in its own process, builds its own kernels and computes,
-on the random Go1 states of its own ``chip_smoke.random_batch`` (and, for
-K2, the payloads U(0, 3) kg of its own ``chip_smoke.random_modes``; the same
-numpy seeds in both), each kernel's output and its plain version's output
-at the flat MPC path's two shapes (MPPI rollout K=256 x 2 substeps of 10 ms,
-plant K=1 x 10 of 2 ms), and times each kernel with CUDA events
-(``chip_smoke.event_ms``).  The checkouts run in the order other, this,
-this, other, so that a drift of the card shows as a difference between the
-two runs of one checkout.  The script prints one JSON line: per kernel and
-shape, whether the inputs and the two kernels' outputs are bit-identical,
-each checkout's kernel-vs-plain max abs error and kernel times, and the
-card's name and power limit.  It exits with 1 if the inputs differ or the
-kernels are not bit-identical.  It imports no JAX.
+with the functions of its own ``chip_smoke.py`` (the same numpy and torch
+seeds in both), each kernel's output and its plain version's output at its
+paths' shapes, and times each kernel with CUDA events
+(``chip_smoke.event_ms``):
+  K1, K2  random Go1 states (``random_batch``; K2 with the payloads U(0, 3)
+          kg of ``random_modes``) at the flat MPC path's two shapes (MPPI
+          rollout K=256 x 2 substeps of 10 ms, plant K=1 x 10 of 2 ms);
+  K3      random OpenDOG states on the ground with random planes
+          (``random_modes``) at the trunk-plane MPPI rollout, K=256 x 2;
+  K4      random OpenDOG states on the generated terrain (seed 0) with
+          their own per-geom planes (``terrain_batch``) at the per-geom
+          MPPI rollout (K=256 x 2) and the terrain plant (K=1 x 10).
+The checkouts run in the order other, this, this, other, so that a drift of
+the card shows as a difference between the two runs of one checkout.  The
+script prints one JSON line: per kernel and shape, whether the inputs and
+the two kernels' outputs are bit-identical, each checkout's kernel-vs-plain
+max abs error and kernel times, and the card's name and power limit.  It
+exits with 1 if the inputs differ or the kernels are not bit-identical.  It
+imports no JAX.
 """
 import json
 import os
@@ -30,8 +38,13 @@ import tempfile
 
 import numpy as np
 
-SHAPES = ((256, 0.01, 2), (1, 0.002, 10))
-KERNELS = (("substep_flat", False), ("substep_payload", True))
+ROLLOUT, PLANT = (256, 0.01, 2), (1, 0.002, 10)
+KERNELS = (  # name, robot, with_plane, with_payload, shapes
+    ("substep_flat", "go1", False, False, (ROLLOUT, PLANT)),
+    ("substep_payload", "go1", False, True, (ROLLOUT, PLANT)),
+    ("substep_plane", "opendog", True, False, (ROLLOUT,)),
+    ("substep_pergeom", "opendog", "per_geom", False, (ROLLOUT, PLANT)),
+)
 REPS = 200
 
 CHILD = r"""
@@ -39,35 +52,49 @@ import sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-from chip_smoke import event_ms, random_batch, random_modes
-from opendog_tpu_torch.assets import load_go1
+from chip_smoke import (event_ms, random_batch, random_modes,
+                        terrain_batch)
+from opendog_tpu_torch.assets import load_go1, load_opendog
 from opendog_tpu_torch.ops import cuda_step
+from opendog_tpu_torch.physics import terrain as terrain_lib
 dev = torch.device("cuda", 0)
-m = load_go1("flat", device=dev)
+models = {"go1": load_go1("flat", device=dev),
+          "opendog": load_opendog("terrain", device=dev)}
+terr = terrain_lib.generate_terrain(models["opendog"],
+                                    torch.Generator().manual_seed(0))
 out = {}
-for name, with_payload in %r:
-    for K, dt, n in %r:
-        arrays = random_batch(m, K)
-        if with_payload:
-            arrays += random_modes(m, K, False, True)[1:]
-        args = [torch.from_numpy(a).to(dev) for a in arrays]
-        extra = {"payload": args.pop()} if with_payload else {}
+for name, robot, with_plane, with_payload, shapes in %r:
+    m = models[robot]
+    for K, dt, n in shapes:
+        if with_plane == "per_geom":
+            arrays = terrain_batch(m, terr, K) + (None,)
+        elif with_plane:
+            arrays = (random_batch(m, K, on_ground=True)
+                      + random_modes(m, K, True))
+        else:
+            arrays = random_batch(m, K) + random_modes(m, K, False, True)
+            if not with_payload:
+                arrays = arrays[:3] + (None, None)
+        args = [None if a is None else torch.from_numpy(a).to(dev)
+                for a in arrays]
         kern = cuda_step.build_cuda_substep(m, dt, n, device=dev,
+                                            with_plane=with_plane,
                                             with_payload=with_payload)
-        kp, kv = kern(*args, **extra)
-        pp, pv = cuda_step.build_plain_substep(m, dt, n, False, with_payload)(
-            *args, **extra)
+        kp, kv = kern(*args)
+        pp, pv = cuda_step.build_plain_substep(m, dt, n, with_plane,
+                                               with_payload)(*args)
         torch.cuda.synchronize()
         tag = f"{name}_K{K}x{n}"
-        out[f"{tag}_ms"] = np.float64(event_ms(torch, lambda: kern(*args, **extra), %d))
-        for key, t in (("in_qpos", args[0]), ("in_qvel", args[1]),
-                       ("kern_qpos", kp), ("kern_qvel", kv),
+        out[f"{tag}_ms"] = np.float64(event_ms(torch, lambda: kern(*args), %d))
+        for key, t in zip(("in_qpos", "in_qvel", "in_ctrl", "in_plane",
+                           "in_payload"), args):
+            if t is not None:
+                out[f"{tag}_{key}"] = t.cpu().numpy()
+        for key, t in (("kern_qpos", kp), ("kern_qvel", kv),
                        ("plain_qpos", pp), ("plain_qvel", pv)):
             out[f"{tag}_{key}"] = t.cpu().numpy()
-        if with_payload:
-            out[f"{tag}_in_payload"] = extra["payload"].cpu().numpy()
 np.savez(sys.argv[2], **out)
-""" % (KERNELS, SHAPES, REPS)
+""" % (KERNELS, REPS)
 
 
 def run_checkout(root: str, path: str) -> dict:
@@ -95,13 +122,14 @@ def main() -> int:
                 root, os.path.join(tmp, f"{i}_{label}.npz"))))
     res = {label: r for label, r in runs}  # outputs: the second run of each
     ok, report = True, []
-    for name, with_payload in KERNELS:
-        for K, _, n in SHAPES:
+    for name, _, _, _, shapes in KERNELS:
+        for K, _, n in shapes:
             tag = f"{name}_K{K}x{n}"
             a, b = res["this"], res["other"]
-            inputs = ("qpos", "qvel") + (("payload",) if with_payload else ())
-            same_in = all(np.array_equal(a[f"{tag}_in_{x}"],
-                                         b[f"{tag}_in_{x}"]) for x in inputs)
+            inputs = [key for key in a if key.startswith(f"{tag}_in_")]
+            same_in = (sorted(inputs) == sorted(
+                key for key in b if key.startswith(f"{tag}_in_"))) and all(
+                np.array_equal(a[key], b[key]) for key in inputs)
             same_kern = all(np.array_equal(a[f"{tag}_kern_{x}"],
                                            b[f"{tag}_kern_{x}"])
                             for x in ("qpos", "qvel"))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flat MPC tick and the payload MPPI solve of two checkouts of the
+"""Time the MPC ticks and the payload MPPI solve of two checkouts of the
 PyTorch port on one CUDA card, in turns.
 
 Usage, from the root of a checkout, with another checkout (e.g. the parent
@@ -9,9 +9,13 @@ commit unpacked with ``git archive``) at OTHER:
 
 Each run is a process of its own in one checkout: the Go1 flat trot loop of
 ``chip_smoke.py`` [main] (make_mpc, K=256, H=25, 2 x 10 ms substeps, plant
-10 x 2 ms) warmed up for 5 ticks and timed over TICKS ticks, then the
-payload solver of [payload] with 1.5 kg warmed up for 3 solves and timed
-over SOLVES solves, each by the host clock around work that ends in
+10 x 2 ms) warmed up for 5 ticks and timed over TICKS ticks; the payload
+solver of [payload] with 1.5 kg warmed up for 3 solves and timed over
+SOLVES solves; then the OpenDOG terrain loops of [terrain] (per-geom planes
+for rollouts and plant) and [terrain-trunk] (one trunk plane for the
+rollouts, per-geom planes for the plant) on the generated terrain of seed
+0, each warmed up for 5 ticks and timed over TERRAIN_TICKS ticks.  Each is
+timed by the host clock around work that ends in
 ``torch.cuda.synchronize()``.  The runs go other, this, this, other, other,
 this, so that a drift of the card or its host shows as a spread between the
 runs of one checkout.  The script prints one JSON line with every run's
@@ -25,6 +29,7 @@ import sys
 
 TICKS = 200
 SOLVES = 50
+TERRAIN_TICKS = 100
 
 CHILD = r"""
 import json, sys, time
@@ -61,9 +66,37 @@ for _ in range(%d):
     ctrl, ms, stats = pay(st, ms, gen, None, 1.5)
 torch.cuda.synchronize()
 solve_ms = 1e3 * (time.perf_counter() - t0) / %d
+from opendog_tpu_torch.assets import load_opendog
+from opendog_tpu_torch.physics import dynamics
+from opendog_tpu_torch.physics import terrain as terrain_lib
+dog = load_opendog("terrain", device=dev)
+terr = terrain_lib.generate_terrain(dog, torch.Generator().manual_seed(0))
+h0 = float(dynamics._terrain_height_normal(
+    dog, terr, torch.zeros(1, 2, device=dev))[0][0])
+cost = costs.standing_cost(dog, 0.0694 + h0, dog.key_qpos[0, 7:])
+cfg = MPPIConfig(horizon=25, num_samples=256, n_substeps=2, rollout_dt=0.01,
+                 noise_sigma=0.08, temperature=0.3)
+terrain_ms = {}
+for mode in ("per_geom", "trunk"):
+    init, tick, _ = make_mpc(dog, cost, cfg, plant_substeps=10, device=dev,
+                             terrain=terr, terrain_plant="kernel",
+                             plane_mode=mode)
+    s0 = make_state(dog, "home")
+    s0.qpos[2] += h0
+    carry_t = init(torch.Generator(device=dev).manual_seed(0), s0)
+    for _ in range(5):
+        carry_t, _ = tick(carry_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(%d):
+        carry_t, _ = tick(carry_t)
+    torch.cuda.synchronize()
+    terrain_ms[mode] = 1e3 * (time.perf_counter() - t0) / %d
 print(json.dumps({"tick_ms": tick_ms, "solve_ms": solve_ms,
+                  "pergeom_tick_ms": terrain_ms["per_geom"],
+                  "trunk_tick_ms": terrain_ms["trunk"],
                   "final_x": float(carry.plant.qpos[0].item())}))
-""" % (TICKS, TICKS, SOLVES, SOLVES)
+""" % (TICKS, TICKS, SOLVES, SOLVES, TERRAIN_TICKS, TERRAIN_TICKS)
 
 
 def run_checkout(root: str) -> dict:
@@ -87,10 +120,12 @@ def main() -> int:
     runs = [(label, run_checkout(here if label == "this" else other))
             for label in order]
     res = {label: {key: [r[key] for lab, r in runs if lab == label]
-                   for key in ("tick_ms", "solve_ms", "final_x")}
+                   for key in ("tick_ms", "solve_ms", "pergeom_tick_ms",
+                               "trunk_tick_ms", "final_x")}
            for label in ("this", "other")}
     print(json.dumps({"other": other, "card": smi, "ticks": TICKS,
-                      "solves": SOLVES, "order": list(order),
+                      "solves": SOLVES, "terrain_ticks": TERRAIN_TICKS,
+                      "order": list(order),
                       "results": res}), flush=True)
     return 0
 

@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
 """Time the warp-design substep kernels (K1 ``substep_flat``, K2
-``substep_payload``) at W = 1, 2 and 4 rollouts per block on one CUDA card.
+``substep_payload``, K3 ``substep_plane``, K4 ``substep_pergeom``) at W = 1,
+2, 4 and 8 rollouts per block on one CUDA card.
 
 Usage, from the root of a checkout:  python3 scripts/torch_warp_sweep.py
 
 W is the compile-time constant SC_WARPS of csrc/substep_kernel.cu.  The
-script builds the kernel library three times with ``-DSC_WARPS=W`` (the
-build flags of ops/build.py, three nvcc processes at once, into a temporary
-directory), then launches each build's K1 and K2 on the random Go1 states of
-``chip_smoke.random_batch`` (payloads U(0, 3) kg from
-``chip_smoke.random_modes``) at the flat MPC path's two shapes (MPPI
-rollout K=256 x 2 substeps of 10 ms, plant K=1 x 10 of 2 ms) and times them
-with CUDA events, the builds in the order 1, 2, 4, 4, 2, 1.  It prints one
-JSON line with each build's times and dynamic shared memory per block,
-whether every build's output equals the W=1 build's bit for bit (exit code 1
-if not), and the serial work of the busiest lane in the two contact phases
-of the warp design (``lane_loads``).  It imports no JAX.
+script builds the kernel library once per W with ``-DSC_WARPS=W`` (the
+build flags of ops/build.py, one nvcc process per W, all at once, into a
+temporary directory), then launches each build's kernels at their paths'
+shapes and times them with CUDA events, the builds in the order 1, 2, 4, 8,
+8, 4, 2, 1:
+  K1, K2  random Go1 states (``chip_smoke.random_batch``; K2 with the
+          payloads U(0, 3) kg of ``chip_smoke.random_modes``) at the flat
+          MPC path's MPPI rollout (K=256 x 2 substeps of 10 ms) and plant
+          (K=1 x 10 of 2 ms);
+  K3      random OpenDOG states on the ground with random planes at the
+          trunk-plane MPPI rollout (K=256 x 2);
+  K4      random OpenDOG states on the generated terrain (seed 0) with their
+          own per-geom planes (``chip_smoke.terrain_batch``) at the per-geom
+          MPPI rollout (K=256 x 2) and the terrain plant (K=1 x 10).
+It prints one JSON line with each build's times and dynamic shared memory
+per block (flat and plane modes), whether every build's output equals the
+W=1 build's bit for bit (exit code 1 if not), and, per robot, the serial
+work of the busiest lane in the two contact phases of the warp design
+(``lane_loads``).  It imports no JAX.
 """
 import json
 import os
@@ -26,12 +35,20 @@ import tempfile
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import event_ms, nvidia_smi_line, random_batch, random_modes  # noqa: E402
-from opendog_tpu_torch.assets import load_go1  # noqa: E402
+from chip_smoke import (event_ms, nvidia_smi_line, random_batch,  # noqa: E402
+                        random_modes, terrain_batch)
+from opendog_tpu_torch.assets import load_go1, load_opendog  # noqa: E402
 from opendog_tpu_torch.ops import build, cuda_step  # noqa: E402
+from opendog_tpu_torch.physics import terrain as terrain_lib  # noqa: E402
 
-WARPS = (1, 2, 4)
-SHAPES = ((256, 0.01, 2), (1, 0.002, 10))
+WARPS = (1, 2, 4, 8)
+ROLLOUT, PLANT = (256, 0.01, 2), (1, 0.002, 10)
+KERNELS = (  # name, robot, with_plane, with_payload, shapes
+    ("substep_flat", "go1", False, False, (ROLLOUT, PLANT)),
+    ("substep_payload", "go1", False, True, (ROLLOUT, PLANT)),
+    ("substep_plane", "opendog", True, False, (ROLLOUT,)),
+    ("substep_pergeom", "opendog", "per_geom", False, (ROLLOUT, PLANT)),
+)
 REPS = 200
 
 
@@ -76,16 +93,18 @@ def build_all(tmp):
     return libs
 
 
-def launcher(lib, table, args, n, with_payload):
-    """fn() launching the flat kernel of ``lib`` once on ``args``."""
-    qp, qv, ct, payload = args
+def launcher(lib, table, args, n, with_plane, with_payload):
+    """fn() launching the kernel of the mode of ``lib`` once on ``args``
+    (qpos, qvel, ctrl, plane or None, payload or None)."""
+    qp, qv, ct, plane, payload = args
     out_p, out_v = torch.empty_like(qp), torch.empty_like(qv)
+    ptr = lambda x: None if x is None else x.data_ptr()
 
     def fn():
         rc = lib.substep_launch(
             table.data_ptr(), qp.data_ptr(), qv.data_ptr(), ct.data_ptr(),
-            None, payload.data_ptr() if with_payload else None,
-            out_p.data_ptr(), out_v.data_ptr(), qp.shape[1], n, 0,
+            ptr(plane), ptr(payload), out_p.data_ptr(), out_v.data_ptr(),
+            qp.shape[1], n, cuda_step._PLANE_CODE[with_plane],
             int(with_payload), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -94,23 +113,37 @@ def launcher(lib, table, args, n, with_payload):
     return fn
 
 
+def inputs(model, terr, K, with_plane, with_payload):
+    """The kernel's inputs at K rollouts, numpy (rows, K) or None."""
+    if with_plane == "per_geom":
+        return terrain_batch(model, terr, K) + (None,)
+    if with_plane:
+        return random_batch(model, K, on_ground=True) + random_modes(
+            model, K, True)
+    arrays = random_batch(model, K) + random_modes(model, K, False, True)
+    return arrays if with_payload else arrays[:3] + (None, None)
+
+
 def main() -> int:
     dev = torch.device("cuda", 0)
-    model = load_go1("flat", device=dev)
+    models = {"go1": load_go1("flat", device=dev),
+              "opendog": load_opendog("terrain", device=dev)}
+    terr = terrain_lib.generate_terrain(models["opendog"],
+                                        torch.Generator().manual_seed(0))
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(tmp)
         ok, results = True, []
-        for name, with_payload in (("substep_flat", False),
-                                   ("substep_payload", True)):
-            for K, dt, n in SHAPES:
-                arrays = random_batch(model, K) + random_modes(
-                    model, K, False, True)[1:]
-                args = [torch.from_numpy(a).to(dev) for a in arrays]
+        for name, robot, with_plane, with_payload, shapes in KERNELS:
+            model = models[robot]
+            for K, dt, n in shapes:
+                args = [None if a is None else torch.from_numpy(a).to(dev)
+                        for a in inputs(model, terr, K, with_plane,
+                                        with_payload)]
                 raw = bytearray(memoryview(cuda_step.substep_table(model, dt))
                                 .cast("B"))
                 table = torch.frombuffer(raw, dtype=torch.uint8).to(dev)
-                fns = {w: launcher(libs[w], table, args, n, with_payload)
-                       for w in WARPS}
+                fns = {w: launcher(libs[w], table, args, n, with_plane,
+                                   with_payload) for w in WARPS}
                 outs = {w: [t.clone() for t in fns[w]()] for w in WARPS}
                 torch.cuda.synchronize()
                 same = all(torch.equal(outs[w][i], outs[1][i])
@@ -122,10 +155,13 @@ def main() -> int:
                 results.append({"kernel": name, "shape": f"K={K} x{n}",
                                 "bit_identical_across_W": same,
                                 "ms": {str(w): ms[w] for w in WARPS}})
-        smem = {str(w): libs[w].substep_warp_smem_bytes() for w in WARPS}
+        smem = {str(w): {"flat": libs[w].substep_warp_smem_bytes(0),
+                         "plane": libs[w].substep_warp_smem_bytes(1)}
+                for w in WARPS}
     print(json.dumps({"card": nvidia_smi_line(), "reps": REPS,
                       "smem_bytes_per_block": smem,
-                      "lane_loads_go1": lane_loads(model.to("cpu")),
+                      "lane_loads": {robot: lane_loads(m.to("cpu"))
+                                     for robot, m in models.items()},
                       "results": results}),
           flush=True)
     return 0 if ok else 1

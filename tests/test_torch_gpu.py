@@ -26,34 +26,49 @@ def cuda_device():
 
 
 def _random_rows(model, K, device):
-    """chip_smoke.py's random Go1 states, (rows, K), on ``device``."""
+    """chip_smoke.py's random states, (rows, K), on ``device``."""
     return tuple(torch.from_numpy(a).to(device)
                  for a in random_batch(model, K))
 
 
+# the warp-design kernels: (robot, with_plane, with_payload)
+WARP_KERNELS = {"flat": ("go1", False, False),         # K1
+                "payload": ("go1", False, True),       # K2
+                "plane": ("opendog", True, False),     # K3
+                "pergeom": ("opendog", "per_geom", False)}  # K4
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("with_payload", [False, True])  # K1, K2
+@pytest.mark.parametrize("mode", sorted(WARP_KERNELS))
 @pytest.mark.parametrize("K,dt,n", [
     (K, 0.01, n) for K in (1, 31, 256, 257) for n in (1, 2)
 ] + [(1, 0.002, 10)])
-def test_kernel_matches_plain_on_card(cuda_device, K, dt, n, with_payload):
-    """The warp-design kernels K1 and K2 equal their plain version exactly
+def test_kernel_matches_plain_on_card(cuda_device, K, dt, n, mode):
+    """The warp-design kernels K1-K4 equal their plain version exactly
     (the same operations in the same order, built with -fmad=false): at
     one rollout, a partial warp group (K=31), the MPPI paths' K=256, a
-    ragged last block (K=257) and the plant step.  Payloads U(0, 3) kg."""
-    m = load_go1("flat", device=cuda_device)
-    qp, qv, ct = _random_rows(m, K, cuda_device)
-    extra = {}
-    if with_payload:
-        _, payload = random_modes(m, K, False, True)
-        extra["payload"] = torch.from_numpy(payload).to(cuda_device)
-    key = cuda_step.launch_key(K, n, False, with_payload)
+    ragged last block (K=257) and the plant step.  K1 and K2 on random Go1
+    states, payloads U(0, 3) kg; K3 and K4 on random OpenDOG states on the
+    ground, with random planes per rollout or per geom and rollout."""
+    robot, with_plane, with_payload = WARP_KERNELS[mode]
+    if robot == "go1":
+        m = load_go1("flat", device=cuda_device)
+        qp, qv, ct = _random_rows(m, K, cuda_device)
+    else:
+        m = load_opendog("flat", device=cuda_device)
+        qp, qv, ct = (torch.from_numpy(a).to(cuda_device)
+                      for a in random_batch(m, K, on_ground=True))
+    extra = {name: torch.from_numpy(a).to(cuda_device)
+             for name, a in zip(("plane", "payload"),
+                                random_modes(m, K, with_plane, with_payload))
+             if a is not None}
+    key = cuda_step.launch_key(K, n, with_plane, with_payload)
     before = cuda_step.LAUNCHES[key]
     kp, kv = cuda_step.build_cuda_substep(
-        m, dt, n, device=cuda_device, with_payload=with_payload)(
-        qp, qv, ct, **extra)
-    pp, pv = cuda_step.build_plain_substep(m, dt, n, False, with_payload)(
-        qp, qv, ct, **extra)
+        m, dt, n, device=cuda_device, with_plane=with_plane,
+        with_payload=with_payload)(qp, qv, ct, **extra)
+    pp, pv = cuda_step.build_plain_substep(m, dt, n, with_plane,
+                                           with_payload)(qp, qv, ct, **extra)
     torch.cuda.synchronize()
     assert cuda_step.LAUNCHES[key] == before + 1
     assert torch.isfinite(kp).all() and torch.isfinite(kv).all()
