@@ -5,11 +5,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no "ok" line):
   device   - a CUDA card must be present; prints its name and power limit;
-  build    - builds the substep kernels (csrc/, one nvcc call, six
-             instantiations: flat, payload, plane and pergeom on the warp
-             design; plane_payload and pergeom_payload on the one-thread
-             design) for sm_90a and prints the ptxas report of each and the
-             warp kernels' rollouts and dynamic shared memory per block;
+  build    - builds the substep kernels (csrc/, one nvcc call: the six
+             entry points flat, payload, plane, pergeom, plane_payload and
+             pergeom_payload, all one warp per rollout, and the batch's
+             plane_payload kernel for models of at most 32 spheres) for
+             sm_90a and prints the ptxas report of each and, for each entry
+             point at its paths' model, the rollouts and dynamic shared
+             memory per block and the blocks and warps resident per SM;
   check    - every kernel against its plain PyTorch version on the card at
              every shape its paths launch: flat on random Go1 states (MPPI
              rollout K=256 x 2 substeps of 10 ms; plant K=1 x 10 of 2 ms);
@@ -19,9 +21,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              with their own per-geom planes (K=256 x 2, K=1 x 10);
              plane_payload on the domain-randomised batch (K=4096 x 10);
              pergeom_payload on the terrain states with payloads U(0, 3) kg
-             (K=256 x 2); and, check only, flat, payload, plane and
-             pergeom at a ragged K=257 x 2 (the last block of the warp
-             kernels part full);
+             (K=256 x 2); and, check only, all six at a ragged K=257 x 2
+             (the last block of the kernels part full);
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc for 250 ticks: trunk in (0.12, 0.5) m, finite, forward
@@ -72,9 +73,9 @@ DROP_BAND = (0.03, 0.21)
 STAND_BAND = (0.03, 0.15)
 MIN_FINAL_X = 0.5      # m trotted forward by the flat loop
 CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # kernel vs plain, max abs error
-# the substep of each kernel design; the entry points are in substep_kernel.cu
-SOURCES = {"warp": "opendog_tpu_torch/csrc/substep_warp.cuh",
-           "thread": "opendog_tpu_torch/csrc/substep_core.cuh"}
+# the substep of the kernels' design; the entry points are in
+# substep_kernel.cu
+SOURCE = "opendog_tpu_torch/csrc/substep_warp.cuh"
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROLLOUT = dict(K=256, dt=0.01, n=2)
@@ -295,6 +296,11 @@ class Smoke:
         self.check("pergeom ragged", dog_t, RAGGED, "per_geom", False,
                    terrain_batch(dog_t, self.terrain, Kr) + (None,),
                    keep=False)
+        self.check("plane_payload ragged", dog, RAGGED, True, True,
+                   batch_inputs(dog, Kr), keep=False)
+        self.check("pergeom_payload ragged", dog_t, RAGGED, "per_geom", True,
+                   terrain_batch(dog_t, self.terrain, Kr)
+                   + random_modes(dog_t, Kr, False, True)[1:], keep=False)
 
     # -- paths ------------------------------------------------------------
     def counted(self, label, run, want):
@@ -713,7 +719,7 @@ class Smoke:
                 "name": f"{rec['name']} ({label}: K={K}, {n} substeps)",
                 "route": "cuda",
                 "design": design,
-                "source": SOURCES[design],
+                "source": SOURCE,
                 "replaces": "opendog_tpu/ops/pallas_step.py:115",
                 "launches": rec["launches"],
                 "max_abs_err": rec["err"],
@@ -728,6 +734,29 @@ class Smoke:
                 raise RuntimeError(f"[timing] {label}: no path launched "
                                    f"{rec['key']}")
         return kernels
+
+
+def occupancy(lib, cs, smoke):
+    """Prints the launch shape of each entry point's kernel for the model
+    of its paths (Go1 for the flat modes, OpenDOG for the plane modes), and
+    of the plane + payload kernel for a model above the small size class;
+    raises where the card could not hold one block of a kernel."""
+    n_max = cs.table_layout()[0]["SC_NG_MAX"]
+    rows = [(name, with_plane, with_payload,
+             (smoke.go1 if with_plane is False else smoke.dog).ngeom)
+            for (with_plane, with_payload), name in cs.KERNEL_NAMES.items()]
+    rows.append((cs.KERNEL_NAMES[(True, True)], True, True, n_max))
+    for name, with_plane, with_payload, ngeom in rows:
+        args = (cs._PLANE_CODE[with_plane], int(with_payload), ngeom)
+        warps = lib.substep_warps_per_block(*args)
+        smem = lib.substep_warp_smem_bytes(*args)
+        blocks = lib.substep_warp_occupancy(*args)
+        log(f"[build] {name} at {ngeom} spheres: {warps} rollouts (warps) "
+            f"per block, {smem} B of dynamic shared memory per block, "
+            f"{blocks} blocks = {blocks * warps} warps per SM")
+        if not blocks >= 1:
+            raise RuntimeError(f"[build] {name} at {ngeom} spheres: "
+                               f"occupancy {blocks}")
 
 
 def main():
@@ -749,19 +778,16 @@ def main():
 
     # ---- build ----
     lib, built = cuda_step.cuda_library()
-    log(f"[build] {built.path} built in {built.seconds:.1f} s; warp kernels: "
-        f"{lib.substep_warps_per_block()} rollouts per block, "
-        f"{lib.substep_warp_smem_bytes(0)} B (flat modes) and "
-        f"{lib.substep_warp_smem_bytes(1)} B (plane modes) of dynamic shared "
-        "memory per block")
+    log(f"[build] {built.path} built in {built.seconds:.1f} s")
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "stack", "Compiling")):
             log(f"[build] {line.strip()}")
     for name in cuda_step.KERNEL_NAMES.values():
         if f"'{name}'" not in built.log:
             raise RuntimeError(f"[build] no ptxas report of {name}")
-
     smoke = Smoke(torch, dev)
+    occupancy(lib, cuda_step, smoke)
+
     smoke.check_all()
     flat_tick, flat_carry = smoke.flat_loop()
     terr_tick, terr_carry = smoke.terrain_loop("terrain", "per_geom",

@@ -19,10 +19,14 @@
 // order, so that the two agree to float32 rounding (and FMA contraction
 // under nvcc).  Everything is float32; no fast-math intrinsics.
 //
-// This header is plain C++ with __host__ __device__ functions: nvcc builds it
-// into the CUDA kernel (substep_kernel.cu) and g++ builds it into a
-// host-only library (substep_host.cpp) that the CPU tests compare with the
-// plain version.
+// This header is plain C++ with __host__ __device__ functions: nvcc builds
+// its table and float helpers into the CUDA kernels (substep_kernel.cu, the
+// warp design of substep_warp.cuh), and g++ builds it into a host-only
+// library (substep_host.cpp) for the CPU tests.  Its substep, sc_substep,
+// runs in that library only: it is the serial oracle, one rollout straight
+// through, that the tests hold the warp design to bit for bit (the plain
+// version, whose sinf / cosf are PyTorch's and not libm's, can only be held
+// to a tolerance on the CPU).
 #pragma once
 
 #include <math.h>
@@ -219,12 +223,12 @@ SC_HD void sc_inertia_apply(const float* A, const float* c, float m,
 }
 
 // ---------------------------------------------------------------------------
-// the substep: advances qpos (nq) and qvel (nv) of one rollout in place
+// the substep: advances qpos (nq) and qvel (nv) of one rollout in place.
+// The serial oracle of the g++ build; no kernel runs it.
 //
 // plane: for SC_PLANE_LANE the rollout's (nx, ny, nz, d) at plane[r * stride];
 // for SC_PLANE_GEOM row r = 4 g + c of geom g at plane[r * stride], read in
-// the contact loop (the kernel passes column k of the (rows, K) input, so
-// the threads of a warp read neighbouring addresses); unused when flat.
+// the contact loop (column k of the (rows, K) input); unused when flat.
 // payload: the rollout's point mass [kg] at the trunk origin, when PAYLOAD.
 // ---------------------------------------------------------------------------
 

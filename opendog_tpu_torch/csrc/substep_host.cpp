@@ -1,8 +1,9 @@
 // Host-only build of substep_core.cuh and substep_warp.cuh, for the CPU
-// tests: g++ compiles the same substep arithmetic as the CUDA kernels, in
-// every mode and in both designs, and the tests compare it with the plain
-// version and the two designs with each other.  No entry point of the
-// package reaches it.
+// tests: g++ compiles the warp design of the CUDA kernels in every mode and
+// workspace size class that they build, and the serial substep sc_substep,
+// which no kernel runs: it is the oracle that the tests hold the warp design
+// to, bit for bit, and both are compared with the plain version.  No entry
+// point of the package reaches it.
 #include <math.h>
 #include <stddef.h>
 
@@ -32,16 +33,17 @@ static void run(const SubstepModel* m, const float* qpos, const float* qvel,
 }
 
 // The warp design with each phase run as a loop over the 32 lanes, in
-// reverse with `rev`.  Before every substep the workspace past the carried
-// state (qpos, qvel, ctrl, plane, payload) is filled with NaN, so that a
-// phase that read a value no earlier phase of the substep wrote would show.
-template <int PLANE, bool PAYLOAD>
+// reverse with `rev`, on a workspace of size class NG.  Before every
+// substep the workspace past the carried state (qpos, qvel, ctrl, plane,
+// payload) is filled with NaN, so that a phase that read a value no earlier
+// phase of the substep wrote would show.
+template <int PLANE, bool PAYLOAD, int NG>
 static void run_warp(const SubstepModel* m, const float* qpos,
                      const float* qvel, const float* ctrl, const float* plane,
                      const float* payload, float* qpos_out, float* qvel_out,
                      int K, int n_substeps, bool rev) {
-  SubstepWorkOf<PLANE> w;
-  const size_t carried = offsetof(SubstepWork, m0);
+  SubstepWorkOf<PLANE, NG> w;
+  const size_t carried = offsetof(SubstepWorkNG<NG>, m0);
   const size_t rest = (sizeof(w) - carried) / sizeof(float);
   float* scratch = reinterpret_cast<float*>(reinterpret_cast<char*>(&w) + carried);
   const int lane = 0;  // unused on the host: SC_PHASE loops over the lanes
@@ -76,8 +78,9 @@ static void run_warp(const SubstepModel* m, const float* qpos,
 
 // qpos (nq, K), qvel (nv, K), ctrl (nu, K), plane (4, K) or (4 * ngeom, K),
 // payload (1, K), row-major, as the kernels take them; writes qpos_out /
-// qvel_out after n_substeps substeps of the one-thread design
-// (substep_core.cuh).  Returns 1 for a bad table and 2 for an unknown mode.
+// qvel_out after n_substeps substeps of the serial oracle, one rollout at a
+// time (sc_substep of substep_core.cuh).  Returns 1 for a bad table and 2
+// for an unknown mode.
 extern "C" int substep_host(const SubstepModel* m, const float* qpos,
                             const float* qvel, const float* ctrl,
                             const float* plane, const float* payload,
@@ -92,18 +95,30 @@ extern "C" int substep_host(const SubstepModel* m, const float* qpos,
 }
 
 // The same for the warp design (substep_warp.cuh), its lanes run in order,
-// or in reverse when `reverse` is not 0.
+// or in reverse when `reverse` is not 0, on a workspace of size class
+// ng_class: SC_NG_MAX in every mode, or SC_NG_SMALL in the plane + payload
+// mode, the one whose kernel is built in both.  Returns 3 for another class
+// or a model with more spheres than the class holds.
 extern "C" int substep_host_warp(const SubstepModel* m, const float* qpos,
                                  const float* qvel, const float* ctrl,
                                  const float* plane, const float* payload,
                                  float* qpos_out, float* qvel_out, int K,
                                  int n_substeps, int plane_mode,
-                                 int with_payload, int reverse) {
+                                 int with_payload, int ng_class,
+                                 int reverse) {
   if (m->magic != SC_MAGIC) return 1;
-#define SC_RUN(P, PL)                                                     \
-  run_warp<P, PL>(m, qpos, qvel, ctrl, plane, payload, qpos_out, qvel_out, \
-                  K, n_substeps, reverse != 0)
+#define SC_RUN_NG(P, PL, NG)                                          \
+  run_warp<P, PL, NG>(m, qpos, qvel, ctrl, plane, payload, qpos_out, \
+                      qvel_out, K, n_substeps, reverse != 0)
+  if (ng_class == SC_NG_SMALL && m->ng <= SC_NG_SMALL &&
+      plane_mode == SC_PLANE_LANE && with_payload) {
+    SC_RUN_NG(SC_PLANE_LANE, true, SC_NG_SMALL);
+    return 0;
+  }
+  if (ng_class != SC_NG_MAX) return 3;
+#define SC_RUN(P, PL) SC_RUN_NG(P, PL, SC_NG_MAX)
   SC_DISPATCH(SC_RUN)
 #undef SC_RUN
+#undef SC_RUN_NG
   return 0;
 }

@@ -5,64 +5,67 @@
 // pl.pallas_call at pallas_step.py:115), which runs n_substeps Featherstone
 // substeps per launch for K rollouts laid out as (rows, K).  Its modes are
 // different work, so each is its own instantiation and its own entry point:
-//   substep_flat            K1  ground z = 0                     (warp)
+//   substep_flat            K1  ground z = 0
 //   substep_payload         K2  z = 0, a point mass at the trunk origin per
-//                               rollout (payload (1, K))          (warp)
+//                               rollout (payload (1, K))
 //   substep_plane           K3  one contact plane per rollout (plane (4, K))
-//                                                                 (warp)
 //   substep_pergeom         K4  one plane per collision geom and rollout
-//                               (plane (4 * ngeom, K))            (warp)
-//   substep_plane_payload   K2 + K3 (the domain-randomised batch) (thread)
-//   substep_pergeom_payload K2 + K4                               (thread)
-// Two designs: K1-K4 run the warp design of substep_warp.cuh, the two plane
-// modes with a payload still the one-thread design of substep_core.cuh.
-// Both compute the same floats in the same order.
+//                               (plane (4 * ngeom, K))
+//   substep_plane_payload   K2 + K3 (the domain-randomised batch)
+//   substep_pergeom_payload K2 + K4
+// All six run one design, one warp per rollout (substep_warp.cuh).  The
+// serial substep of substep_core.cuh (sc_substep) is not built here: it is
+// the g++ oracle that the CPU tests hold this design to, bit for bit.
 //
-// Warp design (K1-K4).  Warp w of a block owns rollout blockIdx.x * W + w
-// (W = SC_WARPS rollouts per block) and its 32 lanes split that rollout's
-// substep into phases with a __syncwarp() between two (substep_warp.cuh
-// lists them).  Each rollout's working arrays live in dynamic shared memory
-// after the block's copy of the model tables (SubstepModel, ~14 KB), not in
-// local memory: SubstepWork (~20 KB) in the flat modes, 93 KB per block at
-// W = 4; SubstepWorkPlane (~23 KB, J.n of every J row besides) in the plane
-// modes, 107 KB per block; two blocks per SM either way.  The lane plane or
-// the per-geom planes are loaded into the workspace once per launch.  A warp
-// whose rollout is >= K helps copy the table and does nothing else.  What
-// bounds it on an H100: scalar float32 work in short dependency chains on a
-// few hundred bytes of state per rollout; the matrices are 3x3 and 6x6, at
-// most 9 dofs per sphere, so wgmma and TMA do not apply (no 64-row tiles,
-// nothing worth a bulk copy).  The levers are shared memory in place of
-// local memory, more SMs busy at the MPPI paths' K = 256 (256 warps instead
-// of 2 blocks of 128 threads), and a shorter critical path per substep: a
-// base pair's contact sum over every sphere (78 for Go1, 24 for OpenDOG) is
-// its longest serial stretch, and in the plane modes each of its terms
-// reads J.n instead of making it.
+// Warp w of a block owns rollout blockIdx.x * W + w (W rollouts per block)
+// and its 32 lanes split that rollout's substep into phases with a
+// __syncwarp() between two (substep_warp.cuh lists them).  Each rollout's
+// working arrays live in dynamic shared memory after the block's copy of
+// the model table (SubstepModel, 13,808 B), not in local memory: 19,860 B
+// per rollout in the flat modes, 93,248 B per block at W = 4; 23,316 B in
+// the plane modes (J.n of every J row besides), 107,072 B per block; two
+// blocks (8 warps) per SM either way.  The lane plane or the per-geom
+// planes and the payload are loaded into the workspace once per launch.  A
+// warp whose rollout is >= K helps copy the table and does nothing else.
+// The loop over the substeps runs inside the kernel, so a 10-substep plant
+// step (K = 1) is one launch.
 //
-// One-thread design (the plane + payload modes).  Thread k owns rollout k:
-// it loads column k of qpos (nq, K), qvel (nv, K) and ctrl (nu, K)
-// (coalesced across the warp), runs n_substeps substeps of substep_core.cuh
-// in registers and local memory (a ~7.5 KB stack frame), and writes column
-// k of the outputs.  The lane plane and the payload are loaded once per
-// launch; the per-geom planes are read from device memory inside the
-// contact loop, column k of each row.  The model tables are copied into
-// shared memory once per block.  At K = 256 this fills 2 of the 132 SMs;
-// these modes move to the warp design in later changes.
+// What bounds it on an H100: scalar float32 work in short dependency chains
+// on a few hundred bytes of state per rollout, each phase behind a
+// __syncwarp(); the matrices are 3x3 and 6x6, at most 9 dofs per sphere, so
+// wgmma and TMA do not apply (no 64-row tiles, nothing worth a bulk copy).
+// One warp is latency-bound, so the time of a launch is its waves of warps
+// times a warp's substeps: at the MPPI paths' K = 256 every warp is
+// resident at once (256 warps over 132 SMs), and the levers are the
+// critical path per substep (a base pair's contact sum over every sphere,
+// 78 for Go1, 24 for OpenDOG, is its longest serial stretch; in the plane
+// modes each term reads J.n instead of making it).
 //
-// Both designs loop over the substeps inside the kernel, so a 10-substep
-// plant step (K = 1) is one launch.
+// The batch (K2 + K3 at K = 4096) is the one shape with more warps than
+// fit at once, so there shared memory per rollout sets the time: the
+// workspace's sphere-indexed arrays are sized by a size class
+// (SubstepWorkOf<PLANE, NG>).  With SC_NG_MAX = 96 spheres two blocks of 4
+// fit on an SM and 4,096 rollouts take four waves (0.83 ms on an H100);
+// the launcher gives a model with at most SC_NG_SMALL = 32 spheres (OpenDOG
+// has 24) the plane + payload kernel built for that class (12,308 B per
+// rollout) with SC_WARPS_SMALL = 8 rollouts per block: two blocks (16
+// warps) per SM, two waves, 0.52 ms (PERF.md).  That is a layout chosen on
+// the host from the model, not a fallback.
 #include <cuda_runtime.h>
 
 #include "substep_core.cuh"
 #include "substep_warp.cuh"
 
-#define SC_BLOCK 128  // threads per block of the one-thread design
-
-// Rollouts (warps) per block of the warp design: of 1, 2, 4 and 8, 4 was
-// the fastest at the K = 256 path shapes of K1-K4 on an H100 and within
-// 1.2% of 8 at K = 1 (PERF.md, measured with scripts/torch_warp_sweep.py,
-// which overrides it to measure).
+// Rollouts (warps) per block, of 1, 2, 4 and 8 on an H100 (PERF.md,
+// measured with scripts/torch_warp_sweep.py, which overrides both constants
+// to measure): 4 was the fastest at the K = 256 path shapes and within 1.2%
+// of 8 at K = 1; 8 for the batch's small size class, whose K = 4096 it
+// takes in two waves where 4 takes three.
 #ifndef SC_WARPS
 #define SC_WARPS 4
+#endif
+#ifndef SC_WARPS_SMALL
+#define SC_WARPS_SMALL 8
 #endif
 
 #define SC_ARGS                                                             \
@@ -74,64 +77,14 @@
 #define SC_PASS \
   model, qpos, qvel, ctrl, plane, payload, qpos_out, qvel_out, K, n_substeps
 
-// ---------------------------------------------------------------------------
-// one-thread design
-// ---------------------------------------------------------------------------
-
-template <int PLANE, bool PAYLOAD>
-__device__ __forceinline__ void substep_body(SC_ARGS) {
-  __shared__ SubstepModel sm;
-  {
-    const int* src = reinterpret_cast<const int*>(model);
-    int* dst = reinterpret_cast<int*>(&sm);
-    const int words = (int)(sizeof(SubstepModel) / sizeof(int));
-    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
-  }
-  __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  float qp[SC_NQ_MAX], qv[SC_NV_MAX], ct[SC_NU_MAX];
-  for (int r = 0; r < sm.nq; ++r) qp[r] = qpos[(size_t)r * K + k];
-  for (int r = 0; r < sm.nv; ++r) qv[r] = qvel[(size_t)r * K + k];
-  for (int r = 0; r < sm.nu; ++r) ct[r] = ctrl[(size_t)r * K + k];
-  const float pl = PAYLOAD ? payload[k] : 0.0f;
-  float lane_plane[4];
-  const float* pk = nullptr;
-  int stride = 0;
-  if (PLANE == SC_PLANE_LANE) {
-    for (int r = 0; r < 4; ++r) lane_plane[r] = plane[(size_t)r * K + k];
-    pk = lane_plane;
-    stride = 1;
-  } else if (PLANE == SC_PLANE_GEOM) {
-    pk = plane + k;
-    stride = K;
-  }
-  for (int s = 0; s < n_substeps; ++s)
-    sc_substep<PLANE, PAYLOAD>(sm, qp, qv, ct, pk, stride, pl);
-  for (int r = 0; r < sm.nq; ++r) qpos_out[(size_t)r * K + k] = qp[r];
-  for (int r = 0; r < sm.nv; ++r) qvel_out[(size_t)r * K + k] = qv[r];
-}
-
-#define SC_KERNEL(NAME, PLANE, PAYLOAD)                                   \
-  extern "C" __global__ void __launch_bounds__(SC_BLOCK) NAME(SC_ARGS) { \
-    substep_body<PLANE, PAYLOAD>(SC_PASS);                                \
-  }
-
-SC_KERNEL(substep_plane_payload, SC_PLANE_LANE, true)
-SC_KERNEL(substep_pergeom_payload, SC_PLANE_GEOM, true)
-
-// ---------------------------------------------------------------------------
-// warp design
-// ---------------------------------------------------------------------------
-
-// dynamic shared memory of a block: the table, then SC_WARPS workspaces
+// dynamic shared memory of a block: the table, then W workspaces
 #define SC_TABLE_BYTES ((sizeof(SubstepModel) + 15) / 16 * 16)
-template <int PLANE>
+template <int PLANE, int NG, int W>
 constexpr size_t sc_warp_smem() {
-  return SC_TABLE_BYTES + SC_WARPS * sizeof(SubstepWorkOf<PLANE>);
+  return SC_TABLE_BYTES + W * sizeof(SubstepWorkOf<PLANE, NG>);
 }
 
-template <int PLANE, bool PAYLOAD>
+template <int PLANE, bool PAYLOAD, int NG, int W>
 __device__ __forceinline__ void substep_warp_body(SC_ARGS) {
   extern __shared__ __align__(16) unsigned char sc_smem[];
   SubstepModel& sm = *reinterpret_cast<SubstepModel*>(sc_smem);
@@ -143,10 +96,10 @@ __device__ __forceinline__ void substep_warp_body(SC_ARGS) {
   }
   __syncthreads();
   const int warp = threadIdx.x / SC_LANES, lane = threadIdx.x % SC_LANES;
-  const int k = blockIdx.x * SC_WARPS + warp;
+  const int k = blockIdx.x * W + warp;
   if (k >= K) return;  // the whole warp: the ragged tail of the last block
-  SubstepWorkOf<PLANE>& w =
-      reinterpret_cast<SubstepWorkOf<PLANE>*>(sc_smem + SC_TABLE_BYTES)[warp];
+  SubstepWorkOf<PLANE, NG>& w = reinterpret_cast<SubstepWorkOf<PLANE, NG>*>(
+      sc_smem + SC_TABLE_BYTES)[warp];
   scw_load<PLANE, PAYLOAD>(sm, w, lane, qpos, qvel, ctrl, plane, payload, K,
                            k);
   __syncwarp();
@@ -155,77 +108,119 @@ __device__ __forceinline__ void substep_warp_body(SC_ARGS) {
   scw_store(sm, w, lane, qpos_out, qvel_out, K, k);
 }
 
-#define SC_WARP_KERNEL(NAME, PLANE, PAYLOAD)                      \
-  extern "C" __global__ void __launch_bounds__(SC_LANES* SC_WARPS) \
-      NAME(SC_ARGS) {                                              \
-    substep_warp_body<PLANE, PAYLOAD>(SC_PASS);                    \
+// An entry point in size class NG with W rollouts per block.
+#define SC_WARP_KERNEL_OF(NAME, PLANE, PAYLOAD, NG, W)                    \
+  extern "C" __global__ void __launch_bounds__(SC_LANES*(W)) NAME(SC_ARGS) { \
+    substep_warp_body<PLANE, PAYLOAD, NG, W>(SC_PASS);                     \
   }
+// An entry point of a mode: every size of model, SC_WARPS per block.
+#define SC_WARP_KERNEL(NAME, PLANE, PAYLOAD) \
+  SC_WARP_KERNEL_OF(NAME, PLANE, PAYLOAD, SC_NG_MAX, SC_WARPS)
 
 SC_WARP_KERNEL(substep_flat, SC_PLANE_FLAT, false)
 SC_WARP_KERNEL(substep_payload, SC_PLANE_FLAT, true)
 SC_WARP_KERNEL(substep_plane, SC_PLANE_LANE, false)
 SC_WARP_KERNEL(substep_pergeom, SC_PLANE_GEOM, false)
+SC_WARP_KERNEL(substep_plane_payload, SC_PLANE_LANE, true)
+SC_WARP_KERNEL(substep_pergeom_payload, SC_PLANE_GEOM, true)
+// the batch's kernel for models with at most SC_NG_SMALL spheres
+SC_WARP_KERNEL_OF(substep_plane_payload_small, SC_PLANE_LANE, true,
+                  SC_NG_SMALL, SC_WARPS_SMALL)
 
 // ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 
-extern "C" int substep_model_size() { return (int)sizeof(SubstepModel); }
-
-// rollouts per block of the warp kernels, and dynamic shared memory per
-// block [B] of the warp kernel of plane_mode = SC_PLANE_* (0 for another)
-extern "C" int substep_warps_per_block() { return SC_WARPS; }
-extern "C" int substep_warp_smem_bytes(int plane_mode) {
-  if (plane_mode == SC_PLANE_FLAT) return (int)sc_warp_smem<SC_PLANE_FLAT>();
-  if (plane_mode == SC_PLANE_LANE) return (int)sc_warp_smem<SC_PLANE_LANE>();
-  if (plane_mode == SC_PLANE_GEOM) return (int)sc_warp_smem<SC_PLANE_GEOM>();
-  return 0;
-}
-
 typedef void (*SubstepKernel)(SC_ARGS);
 
-template <int PLANE>
-static int launch_warp(SubstepKernel kern, SC_ARGS, cudaStream_t s) {
-  const size_t smem = sc_warp_smem<PLANE>();
-  if (smem > 48 * 1024) {  // above 48 KB only after opting in
-    const cudaError_t e = cudaFuncSetAttribute(
-        (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (K + SC_WARPS - 1) / SC_WARPS;
-  kern<<<grid, SC_LANES * SC_WARPS, smem, s>>>(SC_PASS);
-  return (int)cudaGetLastError();
+// A kernel with its launch shape: W rollouts per block, dynamic shared
+// memory per block [B].
+struct WarpKernel {
+  SubstepKernel fn;
+  int warps;
+  size_t smem;
+};
+
+template <int PLANE, int NG, int W>
+static WarpKernel warp_kernel(SubstepKernel fn) {
+  return {fn, W, sc_warp_smem<PLANE, NG, W>()};
 }
 
-static int launch_thread(SubstepKernel kern, SC_ARGS, cudaStream_t s) {
-  const int grid = (K + SC_BLOCK - 1) / SC_BLOCK;
-  kern<<<grid, SC_BLOCK, 0, s>>>(SC_PASS);
-  return (int)cudaGetLastError();
+// The kernel of (plane_mode = SC_PLANE_*, with_payload) for a model with
+// `ngeom` collision spheres (a larger value picks the larger size class);
+// fn is null for an unknown mode.
+static WarpKernel pick_kernel(int plane_mode, int with_payload, int ngeom) {
+  if (plane_mode == SC_PLANE_FLAT)
+    return warp_kernel<SC_PLANE_FLAT, SC_NG_MAX, SC_WARPS>(
+        with_payload ? substep_payload : substep_flat);
+  if (plane_mode == SC_PLANE_LANE && !with_payload)
+    return warp_kernel<SC_PLANE_LANE, SC_NG_MAX, SC_WARPS>(substep_plane);
+  if (plane_mode == SC_PLANE_LANE && ngeom <= SC_NG_SMALL)
+    return warp_kernel<SC_PLANE_LANE, SC_NG_SMALL, SC_WARPS_SMALL>(
+        substep_plane_payload_small);
+  if (plane_mode == SC_PLANE_LANE)
+    return warp_kernel<SC_PLANE_LANE, SC_NG_MAX, SC_WARPS>(
+        substep_plane_payload);
+  if (plane_mode == SC_PLANE_GEOM)
+    return warp_kernel<SC_PLANE_GEOM, SC_NG_MAX, SC_WARPS>(
+        with_payload ? substep_pergeom_payload : substep_pergeom);
+  return {nullptr, 0, 0};
 }
 
-// Launches the instantiation of (plane_mode = SC_PLANE_*, with_payload) on
-// `stream` and returns cudaGetLastError() (0 on success); does not
-// synchronise.  `model` is a device copy of a SubstepModel; `plane` and
-// `payload` may be null where the mode does not read them.
+// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+static cudaError_t opt_in(const WarpKernel& k) {
+  if (k.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute((const void*)k.fn,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)k.smem);
+}
+
+extern "C" int substep_model_size() { return (int)sizeof(SubstepModel); }
+
+// Rollouts per block, dynamic shared memory per block [B], and blocks
+// resident per SM on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the kernel that
+// substep_launch picks for these arguments; -1 for an unknown mode or a
+// CUDA error.
+extern "C" int substep_warps_per_block(int plane_mode, int with_payload,
+                                       int ngeom) {
+  const WarpKernel k = pick_kernel(plane_mode, with_payload, ngeom);
+  return k.fn ? k.warps : -1;
+}
+extern "C" int substep_warp_smem_bytes(int plane_mode, int with_payload,
+                                       int ngeom) {
+  const WarpKernel k = pick_kernel(plane_mode, with_payload, ngeom);
+  return k.fn ? (int)k.smem : -1;
+}
+extern "C" int substep_warp_occupancy(int plane_mode, int with_payload,
+                                      int ngeom) {
+  const WarpKernel k = pick_kernel(plane_mode, with_payload, ngeom);
+  int blocks = 0;
+  if (!k.fn || opt_in(k) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, (const void*)k.fn, SC_LANES * k.warps, k.smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Launches the kernel of (plane_mode = SC_PLANE_*, with_payload) for a
+// model of `ngeom` spheres on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise.  `model` is a device copy of the model's
+// SubstepModel; `plane` and `payload` may be null where the mode does not
+// read them.
 extern "C" int substep_launch(const void* model_, const float* qpos,
                               const float* qvel, const float* ctrl,
                               const float* plane, const float* payload,
                               float* qpos_out, float* qvel_out, int K,
                               int n_substeps, int plane_mode, int with_payload,
-                              void* stream) {
+                              int ngeom, void* stream) {
   const SubstepModel* model = (const SubstepModel*)model_;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (plane_mode == SC_PLANE_FLAT)
-    return launch_warp<SC_PLANE_FLAT>(
-        with_payload ? substep_payload : substep_flat, SC_PASS, s);
-  if (plane_mode == SC_PLANE_LANE)
-    return with_payload
-               ? launch_thread(substep_plane_payload, SC_PASS, s)
-               : launch_warp<SC_PLANE_LANE>(substep_plane, SC_PASS, s);
-  if (plane_mode == SC_PLANE_GEOM)
-    return with_payload
-               ? launch_thread(substep_pergeom_payload, SC_PASS, s)
-               : launch_warp<SC_PLANE_GEOM>(substep_pergeom, SC_PASS, s);
-  return (int)cudaErrorInvalidValue;
+  const WarpKernel k = pick_kernel(plane_mode, with_payload, ngeom);
+  if (!k.fn) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = opt_in(k);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (K + k.warps - 1) / k.warps;
+  k.fn<<<grid, SC_LANES * k.warps, k.smem, (cudaStream_t)stream>>>(SC_PASS);
+  return (int)cudaGetLastError();
 }

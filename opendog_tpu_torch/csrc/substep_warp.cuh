@@ -40,12 +40,20 @@
 #include "substep_core.cuh"
 
 #define SC_LANES 32
+// The small size class of the workspace: models with at most this many
+// collision spheres (OpenDOG has 24, mini 7; Go1's 78 take SC_NG_MAX).
+#define SC_NG_SMALL 32
 
-// A rollout's working arrays (shared memory in the kernel).
-struct SubstepWork {
+// A rollout's working arrays (shared memory in the kernel).  The
+// sphere-indexed arrays (plane, fa / dn / kap, J and, in the plane modes,
+// Jn) are sized for NG spheres, the workspace's size class: SC_NG_MAX, or
+// fewer where a kernel is built for models with at most NG spheres (a
+// smaller workspace fits more rollouts on an SM).
+template <int NG>
+struct SubstepWorkNG {
   float qpos[SC_NQ_MAX], qvel[SC_NV_MAX], ctrl[SC_NU_MAX];
-  float plane[4 * SC_NG_MAX];  // lane plane (4) or per-geom planes (4 ng)
-  float payload, m0;           // payload [kg]; the base's mass with it
+  float plane[4 * NG];  // lane plane (4) or per-geom planes (4 ng)
+  float payload, m0;    // payload [kg]; the base's mass with it
   float q0[4];
   float xpos[SC_NB_MAX][3], xquat[SC_NB_MAX][4], R[SC_NB_MAX][9];
   float S[SC_NV_MAX][6];
@@ -54,23 +62,25 @@ struct SubstepWork {
   float F[SC_NV_MAX][6];
   float qfrc[SC_NV_MAX], ddiag[SC_NV_MAX], rhs[SC_NV_MAX], x[SC_NV_MAX];
   float M[SC_NPAIR_MAX], A[SC_NPAIR_MAX];
-  float fa[SC_NG_MAX], dn[SC_NG_MAX], kap[SC_NG_MAX];  // fn active, dn, kap
-  float J[SC_NG_MAX][SC_ANC_MAX][3];  // J rows of each sphere's dofs
+  float fa[NG], dn[NG], kap[NG];  // fn active, dn, kap
+  float J[NG][SC_ANC_MAX][3];     // J rows of each sphere's dofs
   float inv[SC_G_MAX][SC_NCH_MAX][SC_NCH_MAX];
   float invA[SC_G_MAX][6][SC_NCH_MAX], invb[SC_G_MAX][SC_NCH_MAX];
   float Ss[6][6], yb[6], xb[6];
 };
 
 // The plane modes' working arrays: J.n of each sphere's J rows besides
-// (3,456 B that the flat modes do without).
-struct SubstepWorkPlane : SubstepWork {
-  float Jn[SC_NG_MAX][SC_ANC_MAX];
+// (3,456 B at SC_NG_MAX spheres, which the flat modes do without).
+template <int NG>
+struct SubstepWorkPlaneNG : SubstepWorkNG<NG> {
+  float Jn[NG][SC_ANC_MAX];
 };
 
-// the working arrays of a ground mode
-template <int PLANE>
+// the working arrays of a ground mode, in size class NG
+template <int PLANE, int NG = SC_NG_MAX>
 using SubstepWorkOf =
-    typename std::conditional<PLANE == SC_PLANE_FLAT, SubstepWork, SubstepWorkPlane>::type;
+    typename std::conditional<PLANE == SC_PLANE_FLAT, SubstepWorkNG<NG>,
+                              SubstepWorkPlaneNG<NG>>::type;
 
 // Runs the statement for every lane: on the card each thread is its own lane and
 // the warp synchronises after it; on the host a loop over the lanes, in
@@ -89,8 +99,8 @@ using SubstepWorkOf =
   }
 #endif
 
-template <bool PAYLOAD>
-SC_HD float scw_mass(const SubstepModel& m, const SubstepWork& w, int b) {
+template <bool PAYLOAD, class Work>
+SC_HD float scw_mass(const SubstepModel& m, const Work& w, int b) {
   return (PAYLOAD && b == 0) ? w.m0 : m.body_mass[b];
 }
 
@@ -98,8 +108,8 @@ SC_HD float scw_mass(const SubstepModel& m, const SubstepWork& w, int b) {
 // state in and out
 // ---------------------------------------------------------------------------
 
-template <int PLANE, bool PAYLOAD>
-SC_HD void scw_load(const SubstepModel& m, SubstepWork& w, int lane,
+template <int PLANE, bool PAYLOAD, class Work>
+SC_HD void scw_load(const SubstepModel& m, Work& w, int lane,
                     const float* qpos, const float* qvel, const float* ctrl,
                     const float* plane, const float* payload, int K, int k) {
   for (int r = lane; r < m.nq; r += SC_LANES) w.qpos[r] = qpos[(size_t)r * K + k];
@@ -110,7 +120,8 @@ SC_HD void scw_load(const SubstepModel& m, SubstepWork& w, int lane,
   if (lane == 0) w.payload = PAYLOAD ? payload[k] : 0.0f;
 }
 
-SC_HD void scw_store(const SubstepModel& m, const SubstepWork& w, int lane,
+template <class Work>
+SC_HD void scw_store(const SubstepModel& m, const Work& w, int lane,
                      float* qpos_out, float* qvel_out, int K, int k) {
   for (int r = lane; r < m.nq; r += SC_LANES) qpos_out[(size_t)r * K + k] = w.qpos[r];
   for (int r = lane; r < m.nv; r += SC_LANES) qvel_out[(size_t)r * K + k] = w.qvel[r];
@@ -121,7 +132,8 @@ SC_HD void scw_store(const SubstepModel& m, const SubstepWork& w, int lane,
 // ---------------------------------------------------------------------------
 
 // FK of the base: lane 0
-SC_HD void scw_fk_base(SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_fk_base(Work& w, int lane) {
   if (lane != 0) return;
   const float* qpos = w.qpos;
   const float n = sqrtf(qpos[3] * qpos[3] + qpos[4] * qpos[4] +
@@ -134,7 +146,8 @@ SC_HD void scw_fk_base(SubstepWork& w, int lane) {
 }
 
 // FK of the bodies of body chain `lane`, root to tail
-SC_HD void scw_fk_chain(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_fk_chain(const SubstepModel& m, Work& w, int lane) {
   if (lane >= m.n_bchains) return;
   for (int i = 0; i < m.bchain_len[lane]; ++i) {
     const int b = m.bchain_body[lane * SC_BCHLEN_MAX + i];
@@ -170,8 +183,8 @@ SC_HD void scw_fk_chain(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // S of dof `lane`; inertias at the origin, payload, CB and Cm of body `lane`
-template <bool PAYLOAD>
-SC_HD void scw_s_ia(const SubstepModel& m, SubstepWork& w, int lane) {
+template <bool PAYLOAD, class Work>
+SC_HD void scw_s_ia(const SubstepModel& m, Work& w, int lane) {
   const float* origin = w.xpos[0];
   const int j = lane;
   if (j < 3) {
@@ -240,7 +253,8 @@ SC_HD void scw_s_ia(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // RNEA forward step of body b (its parent's ab is final)
-SC_HD void scw_ab(const SubstepModel& m, SubstepWork& w, int b) {
+template <class Work>
+SC_HD void scw_ab(const SubstepModel& m, Work& w, int b) {
   const int p = m.body_parent[b];
   float vJ[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int d = 0; d < m.body_ndof[b]; ++d) {
@@ -261,8 +275,8 @@ SC_HD void scw_ab(const SubstepModel& m, SubstepWork& w, int b) {
 }
 
 // body force of body b before the backward pass (its own IA)
-template <bool PAYLOAD>
-SC_HD void scw_fsub(const SubstepModel& m, SubstepWork& w, int b) {
+template <bool PAYLOAD, class Work>
+SC_HD void scw_fsub(const SubstepModel& m, Work& w, int b) {
   float Ia[6], Iv[6], t1[3], t2[3];
   const float mb = scw_mass<PAYLOAD>(m, w, b);
   sc_inertia_apply(w.IA[b], w.Ic[b], mb, w.ab[b], Ia);
@@ -275,8 +289,8 @@ SC_HD void scw_fsub(const SubstepModel& m, SubstepWork& w, int b) {
 }
 
 // V of body `lane`; lane 0 then the base's ab and fsub
-template <bool PAYLOAD>
-SC_HD void scw_vel(const SubstepModel& m, SubstepWork& w, int lane) {
+template <bool PAYLOAD, class Work>
+SC_HD void scw_vel(const SubstepModel& m, Work& w, int lane) {
   const int b = lane;
   if (b >= m.nb) return;
   for (int i = 0; i < 6; ++i) w.V[b][i] = 0.0f;
@@ -291,8 +305,8 @@ SC_HD void scw_vel(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // RNEA of body chain `lane`: forward, then the chain's own backward sums
-template <bool PAYLOAD>
-SC_HD void scw_rnea(const SubstepModel& m, SubstepWork& w, int lane) {
+template <bool PAYLOAD, class Work>
+SC_HD void scw_rnea(const SubstepModel& m, Work& w, int lane) {
   if (lane >= m.n_bchains) return;
   const int* chain = m.bchain_body + lane * SC_BCHLEN_MAX;
   const int len = m.bchain_len[lane];
@@ -311,7 +325,8 @@ SC_HD void scw_rnea(const SubstepModel& m, SubstepWork& w, int lane) {
 
 // component `lane` of the base's (fsub 6, IA 6, CB 9, Cm 1): the chain
 // heads added in descending body order
-SC_HD void scw_trunk(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_trunk(const SubstepModel& m, Work& w, int lane) {
   float* base;
   int stride;
   if (lane < 6) {
@@ -332,8 +347,8 @@ SC_HD void scw_trunk(const SubstepModel& m, SubstepWork& w, int lane) {
 // dof `lane`: qfrc's bias, actuator and limit terms, ddiag, F; then the
 // contact scalars and J rows of spheres lane, lane + 32, ... (and, in the
 // plane modes, each row's J.n, which the pair phase reads)
-template <int PLANE>
-SC_HD void scw_dof_geom(const SubstepModel& m, SubstepWorkOf<PLANE>& w, int lane) {
+template <int PLANE, class Work>
+SC_HD void scw_dof_geom(const SubstepModel& m, Work& w, int lane) {
   const int j = lane;
   if (j < m.nv) {
     const int b = m.dof_body[j];
@@ -422,8 +437,8 @@ SC_HD void scw_dof_geom(const SubstepModel& m, SubstepWorkOf<PLANE>& w, int lane
 // qfrc's contact terms.  A base pair's sum over every sphere is the
 // longest serial stretch; in the plane modes its terms read J.n from the
 // sphere phase instead of making it twice more each.
-template <int PLANE>
-SC_HD void scw_pair(const SubstepModel& m, SubstepWorkOf<PLANE>& w, int lane) {
+template <int PLANE, class Work>
+SC_HD void scw_pair(const SubstepModel& m, Work& w, int lane) {
   const float dt = m.dt;
   for (int p = lane; p < m.npair; p += SC_LANES) {
     const int i = m.pair_i[p], j = m.pair_j[p];
@@ -474,7 +489,8 @@ SC_HD void scw_pair(const SubstepModel& m, SubstepWorkOf<PLANE>& w, int lane) {
   (m.pair_index[(i) * SC_NV_MAX + (j)] >= 0 ? w.A[m.pair_index[(i) * SC_NV_MAX + (j)]] : 0.0f)
 
 // rhs of dof `lane`; the inverse of leg chain `lane`'s block
-SC_HD void scw_rhs_inv(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_rhs_inv(const SubstepModel& m, Work& w, int lane) {
   const int nv = m.nv;
   if (lane < nv) {
     const int i = lane;
@@ -517,7 +533,8 @@ SC_HD void scw_rhs_inv(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // lane = 6 g + j < 6 G: inv_g A_bl(j, :) of chain g; lane = 6 G + g: inv_g b_g
-SC_HD void scw_schur_pre(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_schur_pre(const SubstepModel& m, Work& w, int lane) {
   const int G = m.n_chains, n = m.chain_len;
   if (lane >= 7 * G) return;
   const int g = lane < 6 * G ? lane / 6 : lane - 6 * G;
@@ -543,7 +560,8 @@ SC_HD void scw_schur_pre(const SubstepModel& m, SubstepWork& w, int lane) {
 
 // lane < 21: lower entry (i, j) of the Schur complement (the Cholesky reads
 // no other); lane 21 + i: base rhs entry i
-SC_HD void scw_schur(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_schur(const SubstepModel& m, Work& w, int lane) {
   const int G = m.n_chains, n = m.chain_len;
   if (lane >= 27) return;
   if (lane < 21) {
@@ -572,7 +590,8 @@ SC_HD void scw_schur(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // lane 0: guarded 6x6 Cholesky solve of the base block
-SC_HD void scw_chol(SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_chol(Work& w, int lane) {
   if (lane != 0) return;
   float L[6][6], z[6];
   for (int j = 0; j < 6; ++j) {
@@ -599,7 +618,8 @@ SC_HD void scw_chol(SubstepWork& w, int lane) {
 }
 
 // leg chain `lane`: back-substitution
-SC_HD void scw_back(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_back(const SubstepModel& m, Work& w, int lane) {
   const int g = lane, n = m.chain_len;
   if (g >= m.n_chains) return;
   const int* idx = m.chains + g * SC_NCH_MAX;
@@ -619,7 +639,8 @@ SC_HD void scw_back(const SubstepModel& m, SubstepWork& w, int lane) {
 
 // dof `lane`: NaN firewall (a non-finite solve keeps the clipped previous
 // velocity), then its position update (base translation, hinge angle)
-SC_HD void scw_integ(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_integ(const SubstepModel& m, Work& w, int lane) {
   const int i = lane;
   if (i >= m.nv) return;
   const float src = sc_isfinite(w.x[i]) ? w.x[i] : w.qvel[i];
@@ -634,7 +655,8 @@ SC_HD void scw_integ(const SubstepModel& m, SubstepWork& w, int lane) {
 }
 
 // lane 0: the normalised base quaternion integrated
-SC_HD void scw_quat(const SubstepModel& m, SubstepWork& w, int lane) {
+template <class Work>
+SC_HD void scw_quat(const SubstepModel& m, Work& w, int lane) {
   if (lane != 0) return;
   const float dt = m.dt;
   const float wx = w.qvel[3] * dt, wy = w.qvel[4] * dt, wz = w.qvel[5] * dt;
@@ -655,9 +677,9 @@ SC_HD void scw_quat(const SubstepModel& m, SubstepWork& w, int lane) {
 // every phase loops over the lanes (in reverse with `rev`).
 // ---------------------------------------------------------------------------
 
-template <int PLANE, bool PAYLOAD>
-SC_HD void sc_warp_substep(const SubstepModel& m, SubstepWorkOf<PLANE>& w,
-                           int lane, bool rev) {
+template <int PLANE, bool PAYLOAD, class Work>
+SC_HD void sc_warp_substep(const SubstepModel& m, Work& w, int lane,
+                           bool rev) {
   (void)lane;
   (void)rev;
   SC_PHASE(scw_fk_base(w, lane));

@@ -4,11 +4,10 @@ Port of ``opendog_tpu/ops/pallas_step.py`` (``build_pallas_substep``, the
 ``pl.pallas_call`` at line 115) in each of its modes: flat ground (K1), a
 per-lane payload (K2), a per-lane contact plane (K3), per-geom planes (K4),
 and each plane mode with a payload.  The kernels (``csrc/substep_kernel.cu``)
-run over a table of model constants built here: K1-K4 one warp per rollout
-(``csrc/substep_warp.cuh``), the two plane modes with a payload one thread
-per rollout (``csrc/substep_core.cuh``); ``KERNEL_DESIGNS`` says which, and
-the note at the top of the ``.cu`` file gives their design and what bounds
-them.
+run over a table of model constants built here, all six one warp per
+rollout (``csrc/substep_warp.cuh``; ``KERNEL_DESIGNS``); the note at the top
+of the ``.cu`` file gives their design, what bounds them and the workspace
+size class that the launcher picks from the model's sphere count.
 
 Layout as in the JAX package: ``qpos (nq, K)``, ``qvel (nv, K)``,
 ``ctrl (nu, K)``, ``plane (4, K)`` or ``(4 * ngeom, K)``, ``payload (1, K)``,
@@ -44,16 +43,8 @@ KERNEL_NAMES = {
     ("per_geom", True): "substep_pergeom_payload",      # K2 + K4
 }
 # The design of each kernel, as substep_kernel.cu instantiates it: "warp"
-# (SC_WARP_KERNEL, one warp per rollout) or "thread" (SC_KERNEL, one
-# thread per rollout).
-KERNEL_DESIGNS = {
-    "substep_flat": "warp",
-    "substep_payload": "warp",
-    "substep_plane": "warp",
-    "substep_pergeom": "warp",
-    "substep_plane_payload": "thread",
-    "substep_pergeom_payload": "thread",
-}
+# (SC_WARP_KERNEL, one warp per rollout) for all six.
+KERNEL_DESIGNS = {name: "warp" for name in KERNEL_NAMES.values()}
 _PLANE_CODE = {False: 0, True: 1, "per_geom": 2}  # SC_PLANE_* of the header
 
 # Launches of the kernels, keyed by kernel and shape
@@ -291,13 +282,16 @@ def load_library(path: str) -> ctypes.CDLL:
     """Load a build of ``csrc/substep_kernel.cu`` and declare its C
     interface."""
     lib = ctypes.CDLL(path)
-    for fn in (lib.substep_model_size, lib.substep_warps_per_block):
-        fn.argtypes = []
+    lib.substep_model_size.argtypes = []
+    lib.substep_model_size.restype = ctypes.c_int
+    # (plane mode, with_payload, ngeom) -> the launch shape of the kernel
+    # that substep_launch picks for them
+    for fn in (lib.substep_warps_per_block, lib.substep_warp_smem_bytes,
+               lib.substep_warp_occupancy):
+        fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
-    lib.substep_warp_smem_bytes.argtypes = [ctypes.c_int]  # plane mode
-    lib.substep_warp_smem_bytes.restype = ctypes.c_int
     lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.substep_launch.restype = ctypes.c_int
     return lib
 
@@ -343,6 +337,7 @@ class CudaSubstep:
         self.device = resolve_device(device)
         self.dt, self.n_substeps = float(dt), int(n_substeps)
         self.nq, self.nv, self.nu = model.nq, model.nv, model.nu
+        self.ngeom = model.ngeom
         self.plane_rows = scalar_core.plane_rows(model, with_plane)
         table = substep_table(model, dt)
         if self.device.type == "cuda":
@@ -398,7 +393,8 @@ class CudaSubstep:
             self._table.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
             ctrl.data_ptr(), ptr(plane), ptr(payload), qpos_out.data_ptr(),
             qvel_out.data_ptr(), K, self.n_substeps,
-            _PLANE_CODE[self.with_plane], int(self.with_payload), stream)
+            _PLANE_CODE[self.with_plane], int(self.with_payload),
+            self.ngeom, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Hold the warp-design substep kernels (K1 ``substep_flat``, K2
-``substep_payload``, K3 ``substep_plane``, K4 ``substep_pergeom``) of two
+"""Hold the substep kernels (K1 ``substep_flat``, K2 ``substep_payload``, K3
+``substep_plane``, K4 ``substep_pergeom``, K2 + K4
+``substep_pergeom_payload``, K2 + K3 ``substep_plane_payload``) of two
 checkouts of the PyTorch port against each other on one CUDA card: their
 outputs and their times.
 
@@ -21,7 +22,11 @@ paths' shapes, and times each kernel with CUDA events
           (``random_modes``) at the trunk-plane MPPI rollout, K=256 x 2;
   K4      random OpenDOG states on the generated terrain (seed 0) with
           their own per-geom planes (``terrain_batch``) at the per-geom
-          MPPI rollout (K=256 x 2) and the terrain plant (K=1 x 10).
+          MPPI rollout (K=256 x 2) and the terrain plant (K=1 x 10);
+  K2+K4   the same with payloads U(0, 3) kg at the per-geom payload MPPI
+          rollout (K=256 x 2);
+  K2+K3   the domain-randomised batch (``batch_inputs``, OpenDOG on flat
+          ground) at K=4096 x 10 substeps of 2 ms.
 The checkouts run in the order other, this, this, other, so that a drift of
 the card shows as a difference between the two runs of one checkout.  The
 script prints one JSON line: per kernel and shape, whether the inputs and
@@ -39,11 +44,14 @@ import tempfile
 import numpy as np
 
 ROLLOUT, PLANT = (256, 0.01, 2), (1, 0.002, 10)
+BATCH = (4096, 0.002, 10)
 KERNELS = (  # name, robot, with_plane, with_payload, shapes
     ("substep_flat", "go1", False, False, (ROLLOUT, PLANT)),
     ("substep_payload", "go1", False, True, (ROLLOUT, PLANT)),
     ("substep_plane", "opendog", True, False, (ROLLOUT,)),
     ("substep_pergeom", "opendog", "per_geom", False, (ROLLOUT, PLANT)),
+    ("substep_pergeom_payload", "opendog", "per_geom", True, (ROLLOUT,)),
+    ("substep_plane_payload", "opendog_flat", True, True, (BATCH,)),
 )
 REPS = 200
 
@@ -52,14 +60,15 @@ import sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-from chip_smoke import (event_ms, random_batch, random_modes,
+from chip_smoke import (batch_inputs, event_ms, random_batch, random_modes,
                         terrain_batch)
 from opendog_tpu_torch.assets import load_go1, load_opendog
 from opendog_tpu_torch.ops import cuda_step
 from opendog_tpu_torch.physics import terrain as terrain_lib
 dev = torch.device("cuda", 0)
 models = {"go1": load_go1("flat", device=dev),
-          "opendog": load_opendog("terrain", device=dev)}
+          "opendog": load_opendog("terrain", device=dev),
+          "opendog_flat": load_opendog("flat", device=dev)}
 terr = terrain_lib.generate_terrain(models["opendog"],
                                     torch.Generator().manual_seed(0))
 out = {}
@@ -67,7 +76,10 @@ for name, robot, with_plane, with_payload, shapes in %r:
     m = models[robot]
     for K, dt, n in shapes:
         if with_plane == "per_geom":
-            arrays = terrain_batch(m, terr, K) + (None,)
+            arrays = terrain_batch(m, terr, K) + (
+                random_modes(m, K, False, True)[1] if with_payload else None,)
+        elif with_plane and with_payload:
+            arrays = batch_inputs(m, K)
         elif with_plane:
             arrays = (random_batch(m, K, on_ground=True)
                       + random_modes(m, K, True))

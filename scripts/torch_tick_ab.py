@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the MPC ticks and the payload MPPI solve of two checkouts of the
+"""Time the MPC ticks and the payload MPPI solves of two checkouts of the
 PyTorch port on one CUDA card, in turns.
 
 Usage, from the root of a checkout, with another checkout (e.g. the parent
@@ -14,7 +14,9 @@ solver of [payload] with 1.5 kg warmed up for 3 solves and timed over
 SOLVES solves; then the OpenDOG terrain loops of [terrain] (per-geom planes
 for rollouts and plant) and [terrain-trunk] (one trunk plane for the
 rollouts, per-geom planes for the plant) on the generated terrain of seed
-0, each warmed up for 5 ticks and timed over TERRAIN_TICKS ticks.  Each is
+0, each warmed up for 5 ticks and timed over TERRAIN_TICKS ticks; and the
+per-geom payload solver of [pergeom-payload] (OpenDOG standing on that
+terrain with 0.5 kg) warmed up for 3 solves and timed over SOLVES.  Each is
 timed by the host clock around work that ends in
 ``torch.cuda.synchronize()``.  The runs go other, this, this, other, other,
 this, so that a drift of the card or its host shows as a spread between the
@@ -92,11 +94,26 @@ for mode in ("per_geom", "trunk"):
         carry_t, _ = tick(carry_t)
     torch.cuda.synchronize()
     terrain_ms[mode] = 1e3 * (time.perf_counter() - t0) / %d
+pay_t = mppi.make_solver(dog, cost, cfg, device=dev, terrain=terr,
+                         plane_mode="per_geom", with_payload=True)
+st = make_state(dog, "home")
+st.qpos[2] += h0 + 0.0694 - float(dog.key_qpos[0, 2])
+ms = mppi.init_state(dog, cfg)
+for _ in range(3):
+    pay_t(st, ms, gen, None, 0.5)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(%d):
+    ctrl, ms, stats = pay_t(st, ms, gen, None, 0.5)
+torch.cuda.synchronize()
+pergeom_solve_ms = 1e3 * (time.perf_counter() - t0) / %d
 print(json.dumps({"tick_ms": tick_ms, "solve_ms": solve_ms,
                   "pergeom_tick_ms": terrain_ms["per_geom"],
                   "trunk_tick_ms": terrain_ms["trunk"],
+                  "pergeom_payload_solve_ms": pergeom_solve_ms,
                   "final_x": float(carry.plant.qpos[0].item())}))
-""" % (TICKS, TICKS, SOLVES, SOLVES, TERRAIN_TICKS, TERRAIN_TICKS)
+""" % (TICKS, TICKS, SOLVES, SOLVES, TERRAIN_TICKS, TERRAIN_TICKS, SOLVES,
+       SOLVES)
 
 
 def run_checkout(root: str) -> dict:
@@ -121,7 +138,8 @@ def main() -> int:
             for label in order]
     res = {label: {key: [r[key] for lab, r in runs if lab == label]
                    for key in ("tick_ms", "solve_ms", "pergeom_tick_ms",
-                               "trunk_tick_ms", "final_x")}
+                               "trunk_tick_ms", "pergeom_payload_solve_ms",
+                               "final_x")}
            for label in ("this", "other")}
     print(json.dumps({"other": other, "card": smi, "ticks": TICKS,
                       "solves": SOLVES, "terrain_ticks": TERRAIN_TICKS,

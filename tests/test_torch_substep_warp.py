@@ -1,15 +1,17 @@
 """The warp design of the substep kernels (csrc/substep_warp.cuh, which runs
-kernels K1-K4 on the card) on the CPU, through its g++ host build: each
+all six kernels on the card) on the CPU, through its g++ host build: each
 phase runs as a loop over the 32 lanes, in order or in reverse, on a
 workspace filled with NaN before every substep.
 
-It must equal the one-thread design (csrc/substep_core.cuh, the same host
-library) bit for bit, in both lane orders: every float is made by the same
-operations in the same order, only by another lane, and no phase reads
-what another lane writes in the same phase.  Both are held against the plain
-PyTorch version, and the model table's index lists against the arrow pairs
-and the ancestor mask.  The kernels themselves are compared with the plain
-version on the card by tests/test_torch_gpu.py and chip_smoke.py.
+It must equal the serial oracle (sc_substep of csrc/substep_core.cuh, one
+rollout straight through, in the same host library; no kernel runs it) bit
+for bit, in both lane orders and in both workspace size classes: every
+float is made by the same operations in the same order, only by another
+lane, and no phase reads what another lane writes in the same phase.  Both
+are held against the plain PyTorch version, and the model table's index
+lists against the arrow pairs and the ancestor mask.  The kernels
+themselves are compared with the plain version on the card by
+tests/test_torch_gpu.py and chip_smoke.py.
 """
 import ctypes
 import os
@@ -33,17 +35,20 @@ TIGHT = dict(qpos=1e-5, qvel=1e-4)
 MODES = {  # name: (with_plane, with_payload)
     "flat": (False, False), "payload": (False, True),
     "plane": (True, False), "pergeom": ("per_geom", False),
-    # not yet on the warp design on the card; their branches of the warp
-    # header are held here all the same
     "plane_payload": (True, True), "pergeom_payload": ("per_geom", True),
 }
-# the modes whose kernels run the warp design (K1-K4)
-CARD = ("flat", "payload", "plane", "pergeom")
+# the modes whose kernels run the warp design: all six
+CARD = tuple(MODES)
 ROBOTS = {"go1": lambda: assets.load_go1("flat", device="cpu"),
           "opendog": lambda: assets.load_opendog("flat", device="cpu"),
           "mini": lambda: assets.load_mini(device="cpu")}
 STEPS = [(0.01, 1), (0.01, 2), (0.002, 1), (0.002, 2)]  # (dt, n_substeps)
 K = 8
+# the workspace size classes (sphere capacity) of csrc/substep_warp.cuh
+SC_NG_MAX = cuda_step.table_layout()[0]["SC_NG_MAX"]
+with open(os.path.join(build.CSRC, "substep_warp.cuh")) as _f:
+    SC_NG_SMALL = int(re.search(r"^#define SC_NG_SMALL (\d+)", _f.read(),
+                                re.M).group(1))
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +62,7 @@ def host_lib():
     lib = ctypes.CDLL(built.path)
     lib.substep_host.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
     lib.substep_host.restype = ctypes.c_int
-    lib.substep_host_warp.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    lib.substep_host_warp.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     lib.substep_host_warp.restype = ctypes.c_int
     return lib
 
@@ -72,8 +77,10 @@ def _inputs(m, mode, seed=1):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
 
-def _host(lib, m, dt, n, mode, args, design):
-    """One host call: design "thread", "warp" or "warp_reversed"."""
+def _host(lib, m, dt, n, mode, args, design, ng_class=None):
+    """One host call: design "thread" (the serial oracle), "warp" or
+    "warp_reversed", the latter on a workspace of size class ``ng_class``
+    (default SC_NG_MAX)."""
     table = cuda_step.substep_table(m, dt)
     qp, qv, ct, plane, payload = args
     out_p, out_v = torch.empty_like(qp), torch.empty_like(qv)
@@ -86,7 +93,8 @@ def _host(lib, m, dt, n, mode, args, design):
     if design == "thread":
         rc = lib.substep_host(*call)
     else:
-        rc = lib.substep_host_warp(*call, int(design == "warp_reversed"))
+        rc = lib.substep_host_warp(*call, ng_class or SC_NG_MAX,
+                                   int(design == "warp_reversed"))
     assert rc == 0
     return out_p.numpy(), out_v.numpy()
 
@@ -107,6 +115,34 @@ def test_warp_design_equals_one_thread_design_bit_for_bit(host_lib, robot,
     got = _host(host_lib, m, dt, n, mode, args, design)
     assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("design", ["warp", "warp_reversed"])
+@pytest.mark.parametrize("dt,n", STEPS)
+@pytest.mark.parametrize("robot", ["mini", "opendog"])
+def test_small_workspace_equals_one_thread_design_bit_for_bit(host_lib, robot,
+                                                              dt, n, design):
+    """The plane + payload mode on the small size class of the workspace
+    (SC_NG_SMALL spheres, the batch kernel's for OpenDOG's 24 and mini's 7)
+    equals the serial oracle bit for bit, as the full class does."""
+    m = ROBOTS[robot]()
+    assert m.ngeom <= SC_NG_SMALL < SC_NG_MAX
+    args = _inputs(m, "plane_payload")
+    want = _host(host_lib, m, dt, n, "plane_payload", args, "thread")
+    got = _host(host_lib, m, dt, n, "plane_payload", args, design,
+                SC_NG_SMALL)
+    assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_small_workspace_refuses_a_larger_model(host_lib):
+    """Go1's 78 spheres do not fit the small class: the host build refuses
+    it (the kernel launcher picks the full class for such a model)."""
+    m = ROBOTS["go1"]()
+    args = _inputs(m, "plane_payload")
+    with pytest.raises(AssertionError):
+        _host(host_lib, m, 0.01, 1, "plane_payload", args, "warp",
+              SC_NG_SMALL)
 
 
 @pytest.mark.parametrize("mode,robot,dt,n", [
@@ -138,27 +174,27 @@ def test_warp_design_matches_plain(host_lib, robot, mode, dt, n):
 
 
 def test_kernel_designs_match_the_instantiations():
-    """cuda_step.KERNEL_DESIGNS names the design that substep_kernel.cu
-    gives each entry point: SC_WARP_KERNEL for "warp", SC_KERNEL for
-    "thread", each kernel declared once and launched by substep_launch
-    through the launcher of its design (launch_warp, launch_thread)."""
+    """cuda_step.KERNEL_DESIGNS is "warp" for all six entry points, and
+    substep_kernel.cu declares each once with SC_WARP_KERNEL and nothing of
+    the one-thread design (SC_KERNEL, launch_thread); the launcher picks
+    only declared kernels, every entry point among them, and the batch's
+    small-class kernel (SC_WARP_KERNEL_OF) for the plane + payload mode."""
     with open(os.path.join(build.CSRC, "substep_kernel.cu")) as f:
         src = f.read()
-    declared = {}
-    for macro, name in re.findall(r"^(SC_WARP_KERNEL|SC_KERNEL)\((\w+),",
-                                  src, re.M):
-        assert name not in declared, name
-        declared[name] = "warp" if macro == "SC_WARP_KERNEL" else "thread"
-    assert declared == cuda_step.KERNEL_DESIGNS
-    assert set(declared) == set(cuda_step.KERNEL_NAMES.values())
-    body = src[src.index('extern "C" int substep_launch('):]
-    launched = {}
-    for how, kernels in re.findall(r"launch_(warp|thread)(?:<\w+>)?\(\s*"
-                                   r"([^,]+),", body):
-        for name in re.findall(r"\bsubstep_\w+", kernels):
-            assert name not in launched, name
-            launched[name] = how
-    assert launched == cuda_step.KERNEL_DESIGNS
+    declared = re.findall(r"^SC_WARP_KERNEL\((\w+),", src, re.M)
+    assert sorted(declared) == sorted(set(declared)) == sorted(
+        cuda_step.KERNEL_NAMES.values())
+    assert set(cuda_step.KERNEL_DESIGNS.values()) == {"warp"}
+    assert set(cuda_step.KERNEL_DESIGNS) == set(declared)
+    assert not re.search(r"\bSC_KERNEL\b|\blaunch_thread\b|\bsc_substep<",
+                         src)
+    small = re.findall(r"^SC_WARP_KERNEL_OF\((\w+),\s*SC_PLANE_LANE,\s*"
+                       r"true,\s*SC_NG_SMALL,", src, re.M)
+    assert small == ["substep_plane_payload_small"]
+    body = src[src.index("static WarpKernel pick_kernel("):]
+    body = body[:body.index("\n}\n")]
+    picked = re.findall(r"\bsubstep_\w+", body)
+    assert sorted(set(picked)) == sorted(declared + small)
 
 
 @pytest.mark.parametrize("robot", sorted(ROBOTS))
