@@ -25,26 +25,51 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              (the last block of the kernels part full);
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
-             make_mpc for 250 ticks: trunk in (0.12, 0.5) m, finite, forward
-             more than 0.5 m, 25 + 1 flat launches per tick;
+             make_mpc: the tick captured in a CUDA graph (graph_tick) must
+             equal the eager tick bit for bit on the same injected normals
+             for 4 ticks (ctrl, qpos, qvel, nominal); then 250 ticks eager
+             and 250 replayed, each from generator seed 0: trunk in (0.12,
+             0.5) m, finite, forward more than 0.5 m, 25 + 1 flat launches
+             per tick (counted per replay on the graph), ms/tick of both
+             side by side;
   terrain  - OpenDOG terrain MPC with per-geom planes on both sides (bench
              2c_pergeom: K=256, H=25, 2 x 10 ms, sigma 0.08; per-geom
-             kernel plant) on a generated terrain for 100 ticks: finite,
-             trunk above the ground under it in (0.03, 0.21) m at every
-             tick and in (0.03, 0.15) m once the drop from the keyframe is
-             over, 25 + 1 pergeom launches per tick;
+             kernel plant) on a generated terrain, eager and graph as in
+             main, 100 ticks each: finite, trunk above the ground under it
+             in (0.03, 0.21) m at every tick and in (0.03, 0.15) m once the
+             drop from the keyframe is over, 25 + 1 pergeom launches per
+             tick;
   terrain-trunk - the same with one trunk plane for the rollouts, 50 ticks,
              25 plane + 1 pergeom launches per tick;
-  payload  - payload-aware trot MPPI (bench 2d) for 100 solves with 1.5 kg:
-             0 kg equals the flat solver to 1e-6, 1.5 kg changes best_cost,
-             finite, 25 payload launches per solve;
+  payload  - payload-aware trot MPPI (bench 2d): 0 kg equals the flat
+             solver to 1e-6, 1.5 kg changes best_cost; the solve captured
+             in a CUDA graph (graph_solve) equals the eager solve bit for
+             bit on injected normals (ctrl, nominal, stats); 100 solves
+             with 1.5 kg eager and 100 replayed: finite, 25 payload
+             launches per solve;
   batch    - 20 steps of the K=4096 domain-randomised plane + payload batch
              (bench 4c): finite;
-  pergeom-payload - 10 per-geom terrain solves of OpenDOG standing on the
+  pergeom-payload - per-geom terrain solves of OpenDOG standing on the
              generated terrain with 0.5 kg: 0 kg equals the per-geom solver
-             to 1e-6, 0.5 kg changes best_cost, finite, 25 pergeom_payload
-             launches per solve;
-  profile  - torch.profiler over 10 ticks of the flat and terrain loops;
+             to 1e-6, 0.5 kg changes best_cost; graph vs eager as in
+             payload; 10 solves each: finite, 25 pergeom_payload launches
+             per solve;
+  realtime - bench.py:104-156 on the port: 50 graph ticks with a blocking
+             copy of the control (the blocking reference), lag = min(5,
+             max(1, ceil(median / 20 ms) + 1)), then RealtimeController in
+             benchmark mode primed lag + 3 ticks and paced at 20 ms for 250
+             ticks; prints bench.py's host-loop fields (p99 / median / max
+             / mean host-blocking ms, meets_50hz_budget, overruns, control
+             delay, blocking p99 and median); every control finite and in
+             ctrlrange, the internal plant's trunk z in (0.12, 0.5) m and
+             forward more than 0.5 m, 25 + 1 flat launches per replay;
+  bridge   - RealtimeController in bridge mode with delay compensation at
+             that lag, 250 ticks paced at 20 ms against a stand-in robot
+             (the flat plant step on the card, read to the host before
+             each tick, applying each returned control): the same fields
+             and gates, 25 rollout + lag + 1 plant launches per tick;
+  profile  - torch.profiler over 10 ticks of the flat and terrain loops,
+             eager and graph;
   timing   - CUDA-event times of every kernel at each of its path shapes,
              beside its plain version and its bound.
 The last lines are the card's name and power limit, one JSON object of
@@ -64,6 +89,13 @@ PAYLOAD_SOLVES = 100
 PERGEOM_PAYLOAD_SOLVES = 10
 PERGEOM_PAYLOAD_KG = 0.5
 BATCH_STEPS = 20
+EQ_STEPS = 4           # graph vs eager calls on the same normals, per path
+SYNC_TICKS = 50        # [realtime] blocking reference ticks (bench.py's n2)
+RT_TICKS = 250         # [realtime] paced ticks (bench.py's n)
+TICK_S = 0.02          # the 50 Hz tick period
+# a control is the softmax-weighted mean of plans clipped into ctrlrange;
+# float32 rounding of that mean may put it an ulp or so outside
+RANGE_TOL = 1e-6
 TERRAIN_SEED = 0       # torch.Generator seed on the CPU: not a flat episode
 DROP_TICKS = 25        # the keyframe's 0.13 m drop to standing is over by then
 # trunk height above the ground under it on the terrain paths: OpenDOG
@@ -215,6 +247,7 @@ class Smoke:
         self.terrain = terrain_lib.generate_terrain(
             self.dog_t, torch.Generator().manual_seed(TERRAIN_SEED))
         self.records = {}
+        self.pairs = {}  # eager and graph ms per path, for the summary
 
     # -- check ------------------------------------------------------------
     def check(self, label, model, shape, with_plane, with_payload, arrays,
@@ -319,6 +352,65 @@ class Smoke:
             rec["launches"] += launches.get(rec["key"], 0)
         return out
 
+    def graph_matches(self, label, step, gstep, first, n=None):
+        """The graphed step against the eager one on the same injected
+        normals for EQ_STEPS calls, each side from ``first``: ``step(prev,
+        normals)`` returns (next, outputs), where outputs is a dict of
+        tensors; every output must be equal bit for bit."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(11)
+        e = g = first
+        differ, keys = {}, set()
+        for _ in range(EQ_STEPS):
+            normals = torch.randn(n, device=self.dev, generator=gen)
+            e, oe = step(e, normals)
+            g, og = gstep(g, normals)
+            for k, a in oe.items():
+                keys.add(k)
+                if not torch.equal(a, og[k]):
+                    d = (a - og[k]).abs().nan_to_num(nan=float("inf"))
+                    differ[k] = max(differ.get(k, 0.0), d.max().item())
+        torch.cuda.synchronize()
+        verdict = (f"DIFFER, max abs {differ}" if differ
+                   else "equal bit for bit")
+        log(f"[{label}] graph vs eager over {EQ_STEPS} calls on the same "
+            f"normals: {', '.join(sorted(keys))} {verdict}")
+        if differ:
+            raise RuntimeError(f"[{label}] the graph differs from the eager "
+                               f"path: max abs {differ}")
+
+    def tick_pair(self, label, tick, init, s0, cfg, nu, run_loop, want):
+        """The eager tick and its CUDA graph (captured from the loop's first
+        carry): bit for bit on injected normals, then ``run_loop`` on each
+        from the same generator seed, with the launches counted per replay.
+        Returns {side: (wall, loop result, last carry)} and the graphed
+        tick."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.solvers import graph_tick
+        n = (cfg.num_samples, cfg.horizon, nu)
+        first = init(torch.Generator(device=dev).manual_seed(0), s0)
+        t0 = time.perf_counter()
+        gtick = graph_tick(tick, first, torch.zeros(n, device=dev))
+        torch.cuda.synchronize()
+        log(f"[{label}] captured the tick in {time.perf_counter() - t0:.3f} "
+            f"s: {sum(gtick.graph.launches.values())} substep launches per "
+            f"replay {dict(gtick.graph.launches)}")
+        def step(fn):
+            def call(carry, normals):
+                carry, out = fn(carry, normals)
+                return carry, dict(ctrl=out["ctrl"], qpos=out["qpos"],
+                                   qvel=out["qvel"],
+                                   nominal=carry.solver.nominal)
+            return call
+
+        self.graph_matches(label, step(tick), step(gtick), first, n)
+        out = {}
+        for side, fn in (("eager", tick), ("graph", gtick)):
+            carry = init(torch.Generator(device=dev).manual_seed(0), s0)
+            out[side] = self.counted(f"{label} {side}",
+                                     lambda: run_loop(fn, carry), want)
+        return out, gtick
+
     def flat_loop(self):
         torch, dev, cs = self.torch, self.dev, self.cs
         from opendog_tpu_torch.physics import make_state
@@ -337,40 +429,60 @@ class Smoke:
         for _ in range(3):
             warm, _ = tick(warm)
         torch.cuda.synchronize()
-        carry = init(torch.Generator(device=dev).manual_seed(0),
-                     make_state(model, "home"))
 
-        def run():
-            nonlocal carry
+        def run(fn, carry):
             zs, finite = [], []
             t0 = time.perf_counter()
             for _ in range(TICKS):
-                carry, out = tick(carry)
-                zs.append(out["qpos"][2])
+                carry, out = fn(carry)
+                zs.append(out["qpos"][2].clone())
                 finite.append(torch.isfinite(out["qpos"]).all()
                               & torch.isfinite(out["qvel"]).all())
             torch.cuda.synchronize()
-            return time.perf_counter() - t0, zs, finite, out
+            return time.perf_counter() - t0, zs, finite, out, carry
 
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"]): cfg.horizon * TICKS,
                 cs.launch_key(PLANT["K"], PLANT["n"]): TICKS}
-        wall, zs, finite, out = self.counted("main", run, want)
-        z = torch.stack(zs).cpu().numpy()
-        all_finite = bool(torch.stack(finite).all().item())
-        final_x = float(carry.plant.qpos[0].item())
-        log(f"[main] {TICKS} ticks in {wall:.3f} s: "
-            f"{1e3 * wall / TICKS:.3f} ms/tick, {TICKS / wall:.2f} solves/s "
-            f"| final_x {final_x:.3f} m | trunk z min {z.min():.4f} max "
-            f"{z.max():.4f} | finite {all_finite} | best_cost "
-            f"{float(out['best_cost']):.3f} ess {float(out['ess']):.2f}")
-        if not ((z > 0.12) & (z < 0.5)).all():
-            raise RuntimeError("[main] trunk height left (0.12, 0.5) m")
-        if not all_finite:
-            raise RuntimeError("[main] non-finite plant state")
-        if not final_x > MIN_FINAL_X:
-            raise RuntimeError(f"[main] final_x {final_x:.3f} m <= "
-                               f"{MIN_FINAL_X} m")
-        return tick, carry
+        res, gtick = self.tick_pair("main", tick, init,
+                                    make_state(model, "home"), cfg, model.nu,
+                                    run, want)
+        for side, (wall, zs, finite, out, carry) in res.items():
+            z = torch.stack(zs).cpu().numpy()
+            all_finite = bool(torch.stack(finite).all().item())
+            final_x = float(carry.plant.qpos[0].item())
+            log(f"[main] {side}: {TICKS} ticks in {wall:.3f} s: "
+                f"{1e3 * wall / TICKS:.3f} ms/tick, {TICKS / wall:.2f} "
+                f"solves/s | final_x {final_x:.3f} m | trunk z min "
+                f"{z.min():.4f} max {z.max():.4f} | finite {all_finite} | "
+                f"best_cost {float(out['best_cost']):.3f} ess "
+                f"{float(out['ess']):.2f}")
+            if not ((z > 0.12) & (z < 0.5)).all():
+                raise RuntimeError(f"[main] {side}: trunk height left "
+                                   "(0.12, 0.5) m")
+            if not all_finite:
+                raise RuntimeError(f"[main] {side}: non-finite plant state")
+            if not final_x > MIN_FINAL_X:
+                raise RuntimeError(f"[main] {side}: final_x {final_x:.3f} m "
+                                   f"<= {MIN_FINAL_X} m")
+        self.log_pair("main", res, TICKS, "tick")
+        same = torch.equal(res["eager"][4].plant.qpos,
+                           res["graph"][4].plant.qpos)
+        log(f"[main] the graph loop, drawing its normals from the same "
+            f"generator seed, ends on the eager loop's plant state: {same}")
+        if not same:
+            raise RuntimeError("[main] the graph loop drew other normals "
+                               "than the eager loop")
+        carry = init(torch.Generator(device=dev).manual_seed(0),
+                     make_state(model, "home"))
+        return dict(tick=tick, gtick=gtick, carry=carry, model=model,
+                    cost=cost, cfg=cfg)
+
+    def log_pair(self, label, res, n, unit):
+        """Eager and graph ms per tick or solve, side by side."""
+        e, g = (1e3 * res[side][0] / n for side in ("eager", "graph"))
+        log(f"[{label}] ms/{unit}: eager {e:.3f}, graph {g:.3f} ({e / g:.2f}x"
+            f", same call, {n} {unit}s each)")
+        self.pairs[label] = dict(eager_ms=e, graph_ms=g, n=n, unit=unit)
 
     def terrain_loop(self, label, plane_mode, ticks):
         """OpenDOG standing MPC on the generated terrain, kernel plant."""
@@ -398,45 +510,98 @@ class Smoke:
         for _ in range(3):
             warm, _ = tick(warm)
         torch.cuda.synchronize()
-        carry = init(torch.Generator(device=dev).manual_seed(0), s0)
 
-        def run():
-            nonlocal carry
+        def run(fn, carry):
             qs = []
             t0 = time.perf_counter()
             for _ in range(ticks):
-                carry, out = tick(carry)
+                carry, out = fn(carry)
                 qs.append(torch.cat([out["qpos"], out["qvel"]]))
             torch.cuda.synchronize()
-            return time.perf_counter() - t0, torch.stack(qs)
+            return time.perf_counter() - t0, torch.stack(qs), carry
 
         rollout_mode = "per_geom" if plane_mode == "per_geom" else True
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"], rollout_mode):
                 cfg.horizon * ticks,
                 cs.launch_key(PLANT["K"], PLANT["n"], "per_geom"): ticks}
-        wall, qs = self.counted(label, run, want)
-        qpos = qs[:, :model.nq]
-        ground, _ = dynamics._terrain_height_normal(model, terr, qpos[:, :2])
-        clear = (qpos[:, 2] - ground).cpu().numpy()
-        finite = bool(torch.isfinite(qs).all().item())
-        settled = clear[DROP_TICKS:]
-        log(f"[{label}] {ticks} ticks in {wall:.3f} s: "
-            f"{1e3 * wall / ticks:.3f} ms/tick | trunk above ground: min "
-            f"{clear.min():.4f} max {clear.max():.4f}, from tick "
-            f"{DROP_TICKS} min {settled.min():.4f} max {settled.max():.4f}, "
-            f"last {clear[-1]:.4f} | xy drift "
-            f"{float(qpos[-1, :2].norm()):.4f} m | finite {finite}")
-        if not finite:
-            raise RuntimeError(f"[{label}] non-finite plant state")
-        lo, hi = DROP_BAND
-        if not ((clear > lo) & (clear < hi)).all():
-            raise RuntimeError(f"[{label}] trunk left {DROP_BAND} m above "
-                               "the ground")
-        lo, hi = STAND_BAND
-        if not ((settled > lo) & (settled < hi)).all():
-            raise RuntimeError(f"[{label}] trunk left {STAND_BAND} m above "
-                               f"the ground after tick {DROP_TICKS}")
-        return tick, carry
+        res, gtick = self.tick_pair(label, tick, init, s0, cfg, model.nu,
+                                    run, want)
+        for side, (wall, qs, _) in res.items():
+            qpos = qs[:, :model.nq]
+            ground, _ = dynamics._terrain_height_normal(model, terr,
+                                                        qpos[:, :2])
+            clear = (qpos[:, 2] - ground).cpu().numpy()
+            finite = bool(torch.isfinite(qs).all().item())
+            settled = clear[DROP_TICKS:]
+            log(f"[{label}] {side}: {ticks} ticks in {wall:.3f} s: "
+                f"{1e3 * wall / ticks:.3f} ms/tick | trunk above ground: min "
+                f"{clear.min():.4f} max {clear.max():.4f}, from tick "
+                f"{DROP_TICKS} min {settled.min():.4f} max "
+                f"{settled.max():.4f}, last {clear[-1]:.4f} | xy drift "
+                f"{float(qpos[-1, :2].norm()):.4f} m | finite {finite}")
+            if not finite:
+                raise RuntimeError(f"[{label}] {side}: non-finite plant "
+                                   "state")
+            lo, hi = DROP_BAND
+            if not ((clear > lo) & (clear < hi)).all():
+                raise RuntimeError(f"[{label}] {side}: trunk left "
+                                   f"{DROP_BAND} m above the ground")
+            lo, hi = STAND_BAND
+            if not ((settled > lo) & (settled < hi)).all():
+                raise RuntimeError(f"[{label}] {side}: trunk left "
+                                   f"{STAND_BAND} m above the ground after "
+                                   f"tick {DROP_TICKS}")
+        self.log_pair(label, res, ticks, "tick")
+        carry = init(torch.Generator(device=dev).manual_seed(0), s0)
+        return dict(tick=tick, gtick=gtick, carry=carry)
+
+    def solve_pair(self, label, pay, st, ms0, payload, cfg, n_solves, want):
+        """A payload solver and its CUDA graph: bit for bit on injected
+        normals, then ``n_solves`` solves on each from the same generator
+        seed with the launches counted per replay; the solve outputs must
+        be finite."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.solvers import graph_solve
+        n = (cfg.num_samples,) + tuple(ms0.nominal.shape)
+        t0 = time.perf_counter()
+        gsolve = graph_solve(pay, st, ms0, torch.zeros(n, device=dev),
+                             payload)
+        torch.cuda.synchronize()
+        log(f"[{label}] captured the solve in "
+            f"{time.perf_counter() - t0:.3f} s: launches per replay "
+            f"{dict(gsolve.graph.launches)}")
+
+        def step(fn):
+            def call(ms, normals):
+                ctrl, ms, stats = fn(st, ms, None, normals, payload)
+                return ms, dict(ctrl=ctrl, nominal=ms.nominal, **stats)
+            return call
+
+        self.graph_matches(label, step(pay), step(gsolve), ms0, n)
+        res = {}
+        for side, fn in (("eager", pay), ("graph", gsolve)):
+            gen = torch.Generator(device=dev).manual_seed(0)
+
+            def run():
+                ms, ctrls = ms0, []
+                t0 = time.perf_counter()
+                for _ in range(n_solves):
+                    ctrl, ms, stats = fn(st, ms, gen, None, payload)
+                    ctrls.append(ctrl.clone())
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, torch.stack(ctrls), stats
+
+            res[side] = self.counted(f"{label} {side}", run, want)
+            wall, ctrls, stats = res[side]
+            finite = bool(torch.isfinite(ctrls).all().item()) and all(
+                bool(torch.isfinite(v).all().item()) for v in stats.values())
+            log(f"[{label}] {side}: {n_solves} solves with {payload} kg in "
+                f"{wall:.3f} s: {1e3 * wall / n_solves:.3f} ms/solve | "
+                f"best_cost {float(stats['best_cost']):.4f} | finite {finite}")
+            if not finite:
+                raise RuntimeError(f"[{label}] {side}: non-finite solve "
+                                   "output")
+        self.log_pair(label, res, n_solves, "solve")
 
     def payload_solves(self):
         torch, dev, cs = self.torch, self.dev, self.cs
@@ -471,27 +636,10 @@ class Smoke:
                                f"solver by {d0}")
         if not dh > 1e-3:
             raise RuntimeError("[payload] 1.5 kg does not change best_cost")
-        gen = torch.Generator(device=dev).manual_seed(0)
-
-        def run():
-            ms, ctrls = ms0, []
-            t0 = time.perf_counter()
-            for _ in range(PAYLOAD_SOLVES):
-                ctrl, ms, stats = pay(st, ms, gen, None, 1.5)
-                ctrls.append(ctrl)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0, torch.stack(ctrls), stats
-
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"], False, True):
                 cfg.horizon * PAYLOAD_SOLVES}
-        wall, ctrls, stats = self.counted("payload", run, want)
-        finite = bool(torch.isfinite(ctrls).all().item()) and all(
-            bool(torch.isfinite(v).all().item()) for v in stats.values())
-        log(f"[payload] {PAYLOAD_SOLVES} solves with 1.5 kg in {wall:.3f} s: "
-            f"{1e3 * wall / PAYLOAD_SOLVES:.3f} ms/solve | best_cost "
-            f"{float(stats['best_cost']):.4f} | finite {finite}")
-        if not finite:
-            raise RuntimeError("[payload] non-finite solve output")
+        self.solve_pair("payload", pay, st, ms0, 1.5, cfg, PAYLOAD_SOLVES,
+                        want)
 
     def pergeom_payload_solves(self):
         """Per-geom terrain MPPI of OpenDOG standing on the generated
@@ -532,28 +680,165 @@ class Smoke:
         if not dh > 1e-6:
             raise RuntimeError("[pergeom-payload] the payload does not "
                                "change best_cost")
-        gen = torch.Generator(device=dev).manual_seed(0)
-
-        def run():
-            ms, ctrls = ms0, []
-            t0 = time.perf_counter()
-            for _ in range(PERGEOM_PAYLOAD_SOLVES):
-                ctrl, ms, stats = pay(st, ms, gen, None, PERGEOM_PAYLOAD_KG)
-                ctrls.append(ctrl)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0, torch.stack(ctrls), stats
-
         want = {cs.launch_key(cfg.num_samples, cfg.n_substeps, "per_geom",
                               True): cfg.horizon * PERGEOM_PAYLOAD_SOLVES}
-        wall, ctrls, stats = self.counted("pergeom-payload", run, want)
-        finite = bool(torch.isfinite(ctrls).all().item()) and all(
-            bool(torch.isfinite(v).all().item()) for v in stats.values())
-        log(f"[pergeom-payload] {PERGEOM_PAYLOAD_SOLVES} solves with "
-            f"{PERGEOM_PAYLOAD_KG} kg in {wall:.3f} s: "
-            f"{1e3 * wall / PERGEOM_PAYLOAD_SOLVES:.3f} ms/solve | best_cost "
-            f"{float(stats['best_cost']):.4f} | finite {finite}")
-        if not finite:
-            raise RuntimeError("[pergeom-payload] non-finite solve output")
+        self.solve_pair("pergeom-payload", pay, st, ms0, PERGEOM_PAYLOAD_KG,
+                        cfg, PERGEOM_PAYLOAD_SOLVES, want)
+
+    def realtime(self, flat):
+        """bench.py:104-156 on the port: the blocking reference (the graphed
+        tick plus a blocking copy of its control), the pipeline depth from
+        its median, then RealtimeController in benchmark mode paced at
+        50 Hz; the host-blocking time of each tick."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import make_state
+        from opendog_tpu_torch.solvers import RealtimeController
+        model, cfg, gtick, carry = (flat[k] for k in ("model", "cfg", "gtick",
+                                                      "carry"))
+        lat_sync = np.zeros(SYNC_TICKS)
+        for i in range(SYNC_TICKS):
+            t0 = time.perf_counter()
+            carry, out = gtick(carry)
+            out["ctrl"].cpu()
+            lat_sync[i] = time.perf_counter() - t0
+        sync_p99 = float(np.percentile(lat_sync, 99) * 1e3)
+        sync_median = float(np.median(lat_sync) * 1e3)
+        lag = int(min(5, max(1, np.ceil(sync_median / (TICK_S * 1e3)) + 1)))
+        log(f"[realtime] blocking reference over {SYNC_TICKS} graph ticks: "
+            f"median {sync_median:.3f} ms, p99 {sync_p99:.3f} ms -> lag {lag}")
+        rtc = RealtimeController(model, flat["cost"], cfg, lag=lag,
+                                 plant_substeps=10, device=dev,
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(0))
+        t0 = time.perf_counter()
+        rtc.start(make_state(model, "home"))
+        torch.cuda.synchronize()
+        log(f"[realtime] start() captured the tick in "
+            f"{time.perf_counter() - t0:.3f} s")
+        rtc.tick()
+        for _ in range(lag + 3):  # prime the pipeline at pace
+            time.sleep(TICK_S)
+            rtc.tick()
+
+        def run():
+            lat = np.zeros(RT_TICKS)
+            ctrls, overruns = [], 0
+            next_t = time.perf_counter()
+            for i in range(RT_TICKS):
+                next_t += TICK_S
+                t0 = time.perf_counter()
+                ctrl = rtc.tick()
+                lat[i] = time.perf_counter() - t0
+                ctrls.append(ctrl)
+                rest = next_t - time.perf_counter()
+                if rest > 0:
+                    time.sleep(rest)
+                else:
+                    overruns += 1
+                    next_t = time.perf_counter()
+            return lat, np.array(ctrls), overruns
+
+        want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"]):
+                cfg.horizon * RT_TICKS,
+                cs.launch_key(PLANT["K"], PLANT["n"]): RT_TICKS}
+        lat, ctrls, overruns = self.counted("realtime", run, want)
+        rtc.drain()
+        qpos = rtc.plant.qpos.cpu().numpy()
+        fields = dict(loop_fields(lat, overruns, lag),
+                      host_loop_sync_p99_ms=sync_p99,
+                      host_loop_sync_median_ms=sync_median)
+        self.check_loop("realtime", model, ctrls, qpos, fields)
+        return fields
+
+    def check_loop(self, label, model, ctrls, qpos, fields):
+        """Prints a paced loop's fields and gates its controls and plant:
+        finite, in ctrlrange to RANGE_TOL, trunk z in (0.12, 0.5) m,
+        forward more than MIN_FINAL_X."""
+        fields.update(plant_z=float(qpos[2]), final_x=float(qpos[0]))
+        log(f"[{label}] {len(ctrls)} ticks paced at {TICK_S * 1e3:.0f} ms: "
+            + json.dumps(fields))
+        rng = model.numpy("actuator_ctrlrange")
+        if not (ctrls.shape == (len(ctrls), model.nu)
+                and np.isfinite(ctrls).all()):
+            raise RuntimeError(f"[{label}] a control is not finite")
+        out_of_range = float(np.maximum(np.maximum(rng[:, 0] - ctrls,
+                                                   ctrls - rng[:, 1]),
+                                        0).max())
+        log(f"[{label}] controls leave ctrlrange by at most "
+            f"{out_of_range:.3e} (tolerance {RANGE_TOL:.0e})")
+        if not out_of_range <= RANGE_TOL:
+            raise RuntimeError(f"[{label}] a control left ctrlrange")
+        if not 0.12 < qpos[2] < 0.5:
+            raise RuntimeError(f"[{label}] trunk z {qpos[2]:.4f} m left "
+                               "(0.12, 0.5)")
+        if not qpos[0] > MIN_FINAL_X:
+            raise RuntimeError(f"[{label}] final_x {qpos[0]:.3f} m <= "
+                               f"{MIN_FINAL_X} m")
+
+    def bridge(self, flat, lag):
+        """RealtimeController in bridge mode with delay compensation at
+        ``lag``, paced at 50 Hz against a stand-in robot: the flat cell's
+        plant step (K1, K=1 x10) on the card, whose state is read to the
+        host before each tick and which applies each returned control.
+        Times what bridge_tick blocks its caller, as [realtime] does."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import make_state
+        from opendog_tpu_torch.solvers import RealtimeController
+        model, cfg = flat["model"], flat["cfg"]
+        robot = cs.build_cuda_substep(model, model.timestep, PLANT["n"],
+                                      device=dev)
+        rtc = RealtimeController(model, flat["cost"], cfg, lag=lag,
+                                 plant_substeps=PLANT["n"], compensate=True,
+                                 device=dev, generator=torch.Generator(
+                                     device=dev).manual_seed(1))
+        st = make_state(model, "home")
+        qpos, qvel, t = st.qpos[:, None], st.qvel[:, None], 0.0
+
+        def tick():
+            nonlocal qpos, qvel, t
+            q, v = qpos[:, 0].cpu().numpy(), qvel[:, 0].cpu().numpy()
+            t0 = time.perf_counter()
+            ctrl = rtc.bridge_tick(q, v, t)
+            blocked = time.perf_counter() - t0
+            qpos, qvel = robot(qpos, qvel, torch.from_numpy(ctrl).to(
+                dev)[:, None].contiguous())
+            t += TICK_S
+            return blocked, ctrl
+
+        t0 = time.perf_counter()
+        tick()  # captures the compensated solve
+        log(f"[bridge] first bridge_tick (captures the solve) "
+            f"{time.perf_counter() - t0:.3f} s")
+        for _ in range(lag + 3):
+            time.sleep(TICK_S)
+            tick()
+
+        def run():
+            lat = np.zeros(RT_TICKS)
+            ctrls, overruns = [], 0
+            next_t = time.perf_counter()
+            for i in range(RT_TICKS):
+                next_t += TICK_S
+                lat[i], ctrl = tick()
+                ctrls.append(ctrl)
+                rest = next_t - time.perf_counter()
+                if rest > 0:
+                    time.sleep(rest)
+                else:
+                    overruns += 1
+                    next_t = time.perf_counter()
+            return lat, np.array(ctrls), overruns
+
+        # the compensated solve rolls lag plant steps; the robot steps once
+        want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"]):
+                cfg.horizon * RT_TICKS,
+                cs.launch_key(PLANT["K"], PLANT["n"]): (lag + 1) * RT_TICKS}
+        lat, ctrls, overruns = self.counted("bridge", run, want)
+        rtc.drain()
+        fields = loop_fields(lat, overruns, lag)
+        self.check_loop("bridge", model, ctrls, qpos[:, 0].cpu().numpy(),
+                        fields)
+        return fields
 
     def batch_steps(self):
         torch, dev, cs = self.torch, self.dev, self.cs
@@ -659,11 +944,23 @@ class Smoke:
 
     def planes_cost(self, qpos, reps=50):
         """geom_local_planes alone, on the card: milliseconds per call by
-        the host clock (ending in a synchronise) and by CUDA events, and
-        its kernel launches per call from the profiler."""
+        the host clock (ending in a synchronise) and by CUDA events, eager
+        and replayed from a CUDA graph (its share of a replayed per-geom
+        tick, which calls it twice), and its kernel launches per call from
+        the profiler."""
         torch = self.torch
         from opendog_tpu_torch.physics import dynamics
-        fn = lambda: dynamics.geom_local_planes(self.dog_t, self.terrain, qpos)
+        from opendog_tpu_torch.solvers import GraphedTick
+        planes = lambda q: dynamics.geom_local_planes(self.dog_t, self.terrain,
+                                                      q)
+        fn = lambda: planes(qpos)
+        graphed = GraphedTick(planes, (qpos,), self.dev)
+        graph_ms = event_ms(torch, lambda: graphed(graphed.inputs[0]), reps)
+        tick_ms = self.pairs["terrain"]["graph_ms"]
+        log(f"[profile] geom_local_planes replayed from a CUDA graph: "
+            f"{graph_ms:.4f} ms per call (CUDA events); 2 calls are "
+            f"{100 * 2 * graph_ms / tick_ms:.1f}% of the replayed per-geom "
+            f"tick's {tick_ms:.3f} ms")
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -736,6 +1033,20 @@ class Smoke:
         return kernels
 
 
+def loop_fields(lat, overruns, lag):
+    """bench.py's host-loop fields of a paced loop's blocking times [s]."""
+    p99 = float(np.percentile(lat, 99) * 1e3)
+    return {
+        "host_loop_p99_latency_ms": p99,
+        "host_loop_median_latency_ms": float(np.median(lat) * 1e3),
+        "host_loop_max_latency_ms": float(lat.max() * 1e3),
+        "host_loop_mean_latency_ms": float(lat.mean() * 1e3),
+        "host_loop_meets_50hz_budget": bool(p99 < TICK_S * 1e3),
+        "host_loop_control_delay_ticks": lag,
+        "host_loop_overruns": overruns,
+    }
+
+
 def occupancy(lib, cs, smoke):
     """Prints the launch shape of each entry point's kernel for the model
     of its paths (Go1 for the flat modes, OpenDOG for the plane modes), and
@@ -789,19 +1100,25 @@ def main():
     occupancy(lib, cuda_step, smoke)
 
     smoke.check_all()
-    flat_tick, flat_carry = smoke.flat_loop()
-    terr_tick, terr_carry = smoke.terrain_loop("terrain", "per_geom",
-                                               TERRAIN_TICKS)
+    flat = smoke.flat_loop()
+    terr = smoke.terrain_loop("terrain", "per_geom", TERRAIN_TICKS)
     smoke.terrain_loop("terrain-trunk", "trunk", TRUNK_TICKS)
     smoke.payload_solves()
     smoke.batch_steps()
     smoke.pergeom_payload_solves()
-    smoke.profile("flat", flat_tick, flat_carry)
-    smoke.profile("terrain", terr_tick, terr_carry)
-    smoke.planes_cost(terr_carry.plant.qpos)
+    realtime = smoke.realtime(flat)
+    bridge = smoke.bridge(flat, realtime["host_loop_control_delay_ticks"])
+    for label, path in (("flat", flat), ("terrain", terr)):
+        smoke.profile(f"{label} eager", path["tick"], path["carry"])
+        smoke.profile(f"{label} graph", path["gtick"], path["carry"])
+    smoke.planes_cost(terr["carry"].plant.qpos)
     kernels = smoke.timing()
 
     # ---- summary ----
+    log("[summary] eager and graph ms per path (same call): "
+        + json.dumps(smoke.pairs))
+    log("[summary] realtime: " + json.dumps(realtime))
+    log("[summary] bridge: " + json.dumps(bridge))
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

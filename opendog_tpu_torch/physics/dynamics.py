@@ -9,6 +9,7 @@ the op-graph physics is not ported yet (ROADMAP M8).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -60,27 +61,64 @@ def _arrow_structure(model: Model):
 # ---------------------------------------------------------------------------
 
 
-def _tree_levels(model: Model):
+def _tree_levels(body_parent):
     """Static list of numpy body-index arrays grouped by tree depth: one
     batched op-set per level instead of one per body."""
     depth = {}
-    for i in range(model.nbody):
-        p = model.body_parent[i]
+    for i, p in enumerate(body_parent):
         depth[i] = 0 if p < 0 else depth[p] + 1
     nlev = max(depth.values()) + 1
     return [
-        np.array([i for i in range(model.nbody) if depth[i] == L],
+        np.array([i for i in range(len(body_parent)) if depth[i] == L],
                  dtype=np.int32)
         for L in range(nlev)
     ]
 
 
-def _level_perm(model: Model):
+def _level_perm(body_parent):
     """(levels, inverse permutation) mapping level-major concat -> body order."""
-    levels = _tree_levels(model)
+    levels = _tree_levels(body_parent)
     order = np.concatenate(levels)
     inv = np.argsort(order)
     return levels, inv
+
+
+def _fk_plan(model: Model, device, dtype):
+    """The index tensors of ``fk`` for ``model`` on ``device``, made once
+    per topology, device and dtype: ``(levels, inv)`` with one entry per
+    tree depth, ``("free", qpos addresses)`` or ``("joint", index of each
+    parent in the previous level or None at the world root, body indices,
+    qpos addresses or None, hinge mask or None)``.  ``fk`` then copies no
+    host data to the device, which a CUDA graph capture would refuse."""
+    return _fk_plan_of(model.body_parent, model.jnt_type,
+                       model.body_qpos_adr, torch.device(device), dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _fk_plan_of(body_parent, jnt_type, body_qpos_adr, device, dtype):
+    levels, inv = _level_perm(body_parent)
+    idx_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    plan = []
+    for L, idx in enumerate(levels):
+        free_mask = np.array([jnt_type[i] == JNT_FREE for i in idx])
+        if free_mask.all():
+            plan.append(("free", [body_qpos_adr[i] for i in idx]))
+            continue
+        if free_mask.any():
+            raise ValueError("mixed free/hinge level unsupported")
+        parents = np.array([body_parent[i] for i in idx])
+        pos_in_prev = None
+        if parents[0] >= 0:
+            prev = levels[L - 1]
+            pos_in_prev = idx_t(
+                [int(np.where(prev == p_)[0][0]) for p_ in parents])
+        hinge = np.array([jnt_type[i] == JNT_HINGE for i in idx])
+        adr = mask = None
+        if hinge.any():
+            adr = idx_t([body_qpos_adr[i] for i in idx])
+            mask = torch.as_tensor(hinge, dtype=dtype, device=device)
+        plan.append(("joint", pos_in_prev, idx_t(idx), adr, mask))
+    return plan, idx_t(inv)
 
 
 def fk(model: Model, qpos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,40 +128,29 @@ def fk(model: Model, qpos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Level-parallel as in the JAX package: each tree depth is one batched
     op-set (parents gathered from the previous level), assembled at the end
     with one concatenation and a static permutation."""
-    dev = qpos.device
-    idx_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
-    levels, inv = _level_perm(model)
+    plan, inv_t = _fk_plan(model, qpos.device, qpos.dtype)
     pos_levels, quat_levels = [], []
-    for L, idx in enumerate(levels):
-        free_mask = np.array([model.jnt_type[i] == JNT_FREE for i in idx])
-        if free_mask.all():
-            adr = [model.body_qpos_adr[i] for i in idx]
+    for L, level in enumerate(plan):
+        if level[0] == "free":
+            adr = level[1]
             p = torch.stack([qpos[..., a:a + 3] for a in adr], dim=-2)
             q = spatial.quat_normalize(
                 torch.stack([qpos[..., a + 3:a + 7] for a in adr], dim=-2))
         else:
-            if free_mask.any():
-                raise ValueError("mixed free/hinge level unsupported")
-            parents = np.array([model.body_parent[i] for i in idx])
-            if parents[0] < 0:  # hinge bodies welded at the world root
-                shape = qpos.shape[:-1] + (len(idx),)
-                pp = torch.zeros(shape + (3,), dtype=qpos.dtype, device=dev)
-                pq = spatial.quat_identity(qpos.dtype, dev).expand(
+            _, pos_in_prev, sel, adr, hinge = level
+            if pos_in_prev is None:  # hinge bodies welded at the world root
+                shape = qpos.shape[:-1] + (sel.shape[0],)
+                pp = torch.zeros(shape + (3,), dtype=qpos.dtype,
+                                 device=qpos.device)
+                pq = spatial.quat_identity(qpos.dtype, qpos.device).expand(
                     shape + (4,))
             else:
-                prev = levels[L - 1]
-                pos_in_prev = idx_t(
-                    [int(np.where(prev == p_)[0][0]) for p_ in parents])
                 pp = pos_levels[L - 1][..., pos_in_prev, :]
                 pq = quat_levels[L - 1][..., pos_in_prev, :]
-            sel = idx_t(idx)
             p = pp + spatial.quat_rotate(pq, model.body_pos[sel])
             q = spatial.quat_mul(pq, model.body_quat[sel])
-            hinge = np.array([model.jnt_type[i] == JNT_HINGE for i in idx])
-            if hinge.any():
-                adr = idx_t([model.body_qpos_adr[i] for i in idx])
-                theta = qpos[..., adr] * torch.as_tensor(
-                    hinge, dtype=qpos.dtype, device=dev)
+            if adr is not None:
+                theta = qpos[..., adr] * hinge
                 qj = spatial.quat_from_axis_angle(model.jnt_axis[sel], theta)
                 jpos = model.jnt_pos[sel]
                 anchor = p + spatial.quat_rotate(q, jpos)
@@ -131,7 +158,6 @@ def fk(model: Model, qpos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                 p = anchor - spatial.quat_rotate(q, jpos)
         pos_levels.append(p)
         quat_levels.append(q)
-    inv_t = idx_t(inv)
     xpos = torch.cat(pos_levels, dim=-2)[..., inv_t, :]
     xquat = torch.cat(quat_levels, dim=-2)[..., inv_t, :]
     return xpos, xquat

@@ -7,6 +7,8 @@ over leading batch axes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,6 +22,15 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The identity quaternion, made once per dtype and device (so that a
+    call copies no host data, as a CUDA graph capture requires) and shared:
+    expand it, do not write to it."""
+    return _quat_identity(dtype, torch.device("cpu" if device is None
+                                              else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _quat_identity(dtype, device) -> torch.Tensor:
     return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
 
 

@@ -1,3 +1,4 @@
-from . import costs, mpc, mppi  # noqa: F401
-from .mppi import MPPIConfig, MPPIState, make_solver  # noqa: F401
-from .mpc import make_mpc  # noqa: F401
+from . import costs, graph, mpc, mppi  # noqa: F401
+from .graph import GraphedTick  # noqa: F401
+from .mppi import MPPIConfig, MPPIState, graph_solve, make_solver  # noqa: F401
+from .mpc import RealtimeController, graph_tick, make_mpc  # noqa: F401

@@ -12,6 +12,8 @@ Noise: the JAX package draws one key per sample; PyTorch cannot reproduce
 those bits.  ``solve`` therefore takes the ``(K, H, nu)`` standard-normal
 draw as an argument (``normals``) or draws it on the device from a
 ``torch.Generator``.
+
+On the card :func:`graph_solve` replays a solve from a CUDA graph.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
 from ..physics import State, Terrain, dynamics
+from .graph import GraphedTick
 
 PLANE_MODES = ("trunk", "per_geom")
 
@@ -77,7 +80,10 @@ def make_solver(
     geom (kernel K3), with ``"per_geom"`` each geom's own plane (K4).
     With ``with_payload=True`` the solve takes a trailing ``payload``, a
     point mass [kg] rigidly attached at the trunk origin that every rollout
-    carries (K2)."""
+    carries (K2): a float, or a one-element float32 tensor on the device.
+
+    A solve copies no host data to the device and reads nothing back, so
+    :func:`graph_solve` can capture it in a CUDA graph."""
     if config.engine != "kernel":
         raise ValueError(
             f"engine {config.engine!r} is not ported: the rollouts run on "
@@ -129,9 +135,7 @@ def make_solver(
         if terrain is not None:
             extra["plane"] = _local_plane(state, k)
         if with_payload:
-            extra["payload"] = torch.as_tensor(
-                payload, dtype=torch.float32, device=device).reshape(
-                1, 1).expand(1, k).contiguous()
+            extra["payload"] = payload.reshape(1, 1).expand(1, k).contiguous()
         prev_ctrl = candidates[:, 0]
         t = state.time
         disc = 1.0
@@ -181,6 +185,10 @@ def make_solver(
                 f"solver built with_payload={with_payload}: expected "
                 f"{int(with_payload)} trailing args (payload), got {len(aux)}")
         payload = aux[0] if with_payload else None
+        if with_payload and not torch.is_tensor(payload):
+            # a fill, not a copy of host data: a graph can capture it
+            payload = torch.full((), float(payload), dtype=torch.float32,
+                                 device=device)
         if normals is None:
             normals = torch.randn((K, H, nu), generator=generator,
                                   device=device, dtype=torch.float32)
@@ -200,3 +208,45 @@ def make_solver(
         return ctrl, MPPIState(nominal=shifted), stats
 
     return solve
+
+
+def graph_solve(solve: Callable, state: State, mppi_state: MPPIState,
+                normals: torch.Tensor, *aux):
+    """``solve`` (of :func:`make_solver`) captured in a CUDA graph
+    (:class:`~.graph.GraphedTick`) from these example inputs, on the device
+    of ``normals``: returns ``gsolve(state, mppi_state, generator=None,
+    normals=None, *aux) -> (ctrl, mppi_state', stats)``, which computes what
+    ``solve`` computes.  Without ``normals`` it draws them with
+    ``generator`` into the graph's static buffer before the replay, as
+    ``solve`` draws them; a float ``aux`` (the payload) is filled into its
+    buffer.  Its outputs are static tensors that the next call overwrites:
+    clone what you keep.  Raises on a device other than CUDA."""
+
+    def fn(qpos, qvel, time, nominal, normals, *aux):
+        ctrl, ms, stats = solve(State(qpos=qpos, qvel=qvel, time=time),
+                                MPPIState(nominal=nominal), None, normals,
+                                *aux)
+        return ctrl, ms.nominal, stats
+
+    device = normals.device
+    aux_t = [a if torch.is_tensor(a) else
+             torch.full((), float(a), dtype=torch.float32, device=device)
+             for a in aux]
+    graph = GraphedTick(fn, (state.qpos, state.qvel, state.time,
+                             mppi_state.nominal, normals, *aux_t), device)
+    bufs = graph.inputs
+
+    def gsolve(state: State, mppi_state: MPPIState,
+               generator: Optional[torch.Generator] = None,
+               normals: Optional[torch.Tensor] = None, *aux):
+        if normals is None:
+            normals = bufs[4]
+            torch.randn(normals.shape, generator=generator, out=normals)
+        aux = [a if torch.is_tensor(a) else bufs[5 + i].fill_(float(a))
+               for i, a in enumerate(aux)]
+        ctrl, nominal, stats = graph(state.qpos, state.qvel, state.time,
+                                     mppi_state.nominal, normals, *aux)
+        return ctrl, MPPIState(nominal=nominal), stats
+
+    gsolve.graph = graph
+    return gsolve

@@ -1,13 +1,16 @@
 """Tests of the port that need a CUDA card: every substep kernel against its
 plain PyTorch version on the card, at the shapes of the paths that launch
-it (and, for the warp-design kernels, at the edges of their grid), and the
-launch counter.  Where there is no card they skip (decided inside a
-fixture, so that every worker collects the same tests).
+it (and, for the warp-design kernels, at the edges of their grid), the
+launch counter, and the ticks, solves and controller replayed from CUDA
+graphs against their eager versions.  Where there is no card they skip
+(decided inside a fixture, so that every worker collects the same
+tests).
 
 This file imports neither JAX nor the JAX package, so that it runs on the
 GPU machine, where the repository's conftest.py (which imports JAX) is left
 out:  python -m pytest --noconftest -o addopts="" -q -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -196,3 +199,191 @@ def test_batch_kernel_size_classes_agree(cuda_device):
                    / lib.substep_warps_per_block(1, 1, ngeom)
                    for ngeom in (m.ngeom, n_max)}
     assert per_rollout[m.ngeom] < per_rollout[n_max]
+
+
+# -- the graphed tick, solves and controller ------------------------------
+
+def _bench_config(sigma=0.12):
+    from opendog_tpu_torch.solvers import MPPIConfig
+    return MPPIConfig(horizon=25, num_samples=256, n_substeps=2,
+                      rollout_dt=0.01, noise_sigma=sigma, temperature=0.3)
+
+
+def _go1_trot(device):
+    from opendog_tpu_torch.solvers import costs
+    m = load_go1("flat", device=device)
+    params = costs.TrotCostParams(desired_vel_xy=(0.5, 0.0),
+                                  target_height=0.265)
+    return m, costs.trot_cost(m, params, m.key_qpos[0, 7:], legs="go1")
+
+
+def _dog_terrain(device):
+    from opendog_tpu_torch.physics import terrain as terrain_lib
+    from opendog_tpu_torch.solvers import costs
+    m = load_opendog("terrain", device=device)
+    terr = terrain_lib.generate_terrain(m, torch.Generator().manual_seed(0))
+    return m, terr, costs.standing_cost(m, 0.0694, m.key_qpos[0, 7:])
+
+
+def _normals(n, cfg, nu, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((cfg.num_samples, cfg.horizon, nu), device=device,
+                        generator=g) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["flat", "per_geom", "trunk"])
+def test_graph_tick_equals_eager_tick(cuda_device, path):
+    """The make_mpc tick replayed from a CUDA graph equals the eager tick
+    bit for bit on the same normals from the same carry (it replays the
+    same kernels), and each replay counts one tick's launches: 25 rollout
+    launches and one plant launch."""
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import graph_tick, make_mpc
+    if path == "flat":
+        m, cost = _go1_trot(cuda_device)
+        cfg, extra = _bench_config(), {}
+        s0 = make_state(m, "home")
+    else:
+        m, terr, cost = _dog_terrain(cuda_device)
+        cfg = _bench_config(0.08)
+        extra = dict(terrain=terr, terrain_plant="kernel", plane_mode=path)
+        s0 = make_state(m, "home")
+    init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=10,
+                             device=cuda_device, **extra)
+    carry0 = init(torch.Generator(device=cuda_device).manual_seed(0), s0)
+    normals = _normals(4, cfg, m.nu, cuda_device)
+    keys = ("ctrl", "qpos", "qvel")
+    eager, carry = [], carry0
+    for n in normals:
+        carry, out = tick(carry, n)
+        eager.append([out[k] for k in keys] + [carry.solver.nominal])
+    gtick = graph_tick(tick, carry0, normals[0])
+    rollout = (False if path == "flat" else
+               "per_geom" if path == "per_geom" else True)
+    assert dict(gtick.graph.launches) == {
+        cuda_step.launch_key(256, 2, rollout): 25,
+        cuda_step.launch_key(1, 10, False if path == "flat" else "per_geom"):
+        1}
+    cuda_step.LAUNCHES.clear()
+    carry = carry0
+    for n, want in zip(normals, eager):
+        carry, out = gtick(carry, n)
+        got = [out[k] for k in keys] + [carry.solver.nominal]
+        for k, a, b in zip(keys + ("nominal",), got, want):
+            assert torch.equal(a, b), k
+    torch.cuda.synchronize()
+    assert dict(cuda_step.LAUNCHES) == {
+        k: v * len(normals) for k, v in gtick.graph.launches.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["flat", "per_geom"])
+def test_graph_payload_solve_equals_eager(cuda_device, path):
+    """Both payload solves replayed from a CUDA graph equal the eager solve
+    bit for bit on the same normals, with the payload as a float and as a
+    tensor."""
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import graph_solve, mppi
+    if path == "flat":
+        m, cost = _go1_trot(cuda_device)
+        cfg, extra = _bench_config(), {}
+    else:
+        m, terr, cost = _dog_terrain(cuda_device)
+        cfg, extra = _bench_config(0.08), dict(terrain=terr,
+                                               plane_mode="per_geom")
+    solve = mppi.make_solver(m, cost, cfg, device=cuda_device,
+                             with_payload=True, **extra)
+    st, ms0 = make_state(m, "home"), mppi.init_state(m, cfg)
+    normals = _normals(3, cfg, m.nu, cuda_device)
+    gsolve = graph_solve(solve, st, ms0, normals[0], 0.5)
+    ms_e = ms_g = ms0
+    for i, n in enumerate(normals):
+        payload = 1.5 if i % 2 == 0 else torch.full((), 1.5,
+                                                    device=cuda_device)
+        ce, ms_e, se = solve(st, ms_e, None, n, payload)
+        cg, ms_g, sg = gsolve(st, ms_g, None, n, payload)
+        assert torch.equal(ce, cg)
+        assert torch.equal(ms_e.nominal, ms_g.nominal)
+        assert torch.equal(se["best_cost"], sg["best_cost"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lag,compensate", [(1, False), (2, True)])
+def test_realtime_controller_on_card(cuda_device, lag, compensate):
+    """Twenty benchmark-mode ticks of bench.py's configuration give finite
+    controls in ctrlrange, and the stream is the eager make_mpc loop's
+    controls (with ``ctrl_lag=lag`` and compensation when compensating)
+    ``lag`` ticks late, bit for bit, on the same normals."""
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import RealtimeController, make_mpc
+    m, cost = _go1_trot(cuda_device)
+    cfg = _bench_config()
+    normals = _normals(20, cfg, m.nu, cuda_device)
+    rtc = RealtimeController(m, cost, cfg, lag=lag, plant_substeps=10,
+                             compensate=compensate, device=cuda_device)
+    rtc.start(make_state(m, "home"))
+    got = [rtc.tick(n) for n in normals]
+    last = rtc.drain()
+    init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=10,
+                             ctrl_lag=lag if compensate else 0,
+                             lag_compensation=compensate, device=cuda_device)
+    carry = init(None, make_state(m, "home"))
+    want = []
+    for n in normals:
+        carry, out = tick(carry, n)
+        want.append(out["ctrl"].cpu().numpy())
+    rng = m.numpy("actuator_ctrlrange")
+    hold = np.clip(m.numpy("key_ctrl")[0], rng[:, 0], rng[:, 1])
+    got = np.array(got)
+    assert np.isfinite(got).all()
+    # a softmax-weighted mean of clipped plans may round an ulp outside
+    assert ((got >= rng[:, 0] - 1e-6) & (got <= rng[:, 1] + 1e-6)).all()
+    np.testing.assert_array_equal(got[lag:], np.array(want)[:-lag])
+    np.testing.assert_array_equal(last, want[-1])
+    for t in range(lag):
+        np.testing.assert_array_equal(got[t], hold)
+
+
+@pytest.mark.gpu
+def test_compensated_bridge_on_card(cuda_device):
+    """Bridge mode with compensation at lag 2 (the graphed solve with its
+    in-flight queue, measured states through pinned staging): the stream
+    is the eager compensated solve's, run by hand from the same states and
+    normals with the queue primed from the placeholder, two ticks late,
+    bit for bit; after a drain the queue is primed again."""
+    from opendog_tpu_torch.physics import State, make_state
+    from opendog_tpu_torch.solvers import RealtimeController, mpc, mppi
+    m, cost = _go1_trot(cuda_device)
+    cfg, lag = _bench_config(), 2
+    normals = _normals(8, cfg, m.nu, cuda_device)
+    plant = mpc._make_plant_step(m, 10, cuda_device)
+    rng = m.actuator_ctrlrange
+    hold = torch.clamp(m.key_ctrl[0], rng[:, 0], rng[:, 1])
+    st, states = make_state(m, "home"), []
+    for _ in range(len(normals)):
+        states.append((st.qpos.cpu().numpy(), st.qvel.cpu().numpy(),
+                       float(st.time)))
+        st = plant(st, hold)
+    solve_c = mpc._compensated_solver(
+        mppi.make_solver(m, cost, cfg, device=cuda_device), plant, lag)
+    rtc = RealtimeController(m, cost, cfg, lag=lag, plant_substeps=10,
+                             compensate=True, device=cuda_device)
+    ms, last = mppi.init_state(m, cfg), hold.cpu().numpy()
+    for part in (slice(0, 5), slice(5, None)):  # a drain in between
+        got = np.array([rtc.bridge_tick(*s, normals=n)
+                        for s, n in zip(states[part], normals[part])])
+        queue = torch.from_numpy(np.tile(last[None], (lag, 1))).to(
+            cuda_device)
+        want = []
+        for (q, v, t), n in zip(states[part], normals[part]):
+            s = State(qpos=torch.from_numpy(q).to(cuda_device),
+                      qvel=torch.from_numpy(v).to(cuda_device),
+                      time=torch.full((), t, device=cuda_device))
+            ctrl, ms, stats = solve_c(s, ms, None, n, queue)
+            queue = stats["queue"]
+            want.append(ctrl.cpu().numpy())
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got[lag:], np.array(want)[:-lag])
+        last = rtc.drain()
+        np.testing.assert_array_equal(last, want[-1])
