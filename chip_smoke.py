@@ -41,6 +41,25 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              tick;
   terrain-trunk - the same with one trunk plane for the rollouts, 50 ticks,
              25 plane + 1 pergeom launches per tick;
+  ops-check - the op-graph physics step (dynamics.step) on the card against
+             the flat kernel on random Go1 states (K=256, one 2 ms substep;
+             the cross-engine tolerance 1e-4 qpos, 5e-3 qvel) and against
+             the same step on the CPU on the same inputs (1e-4 qpos, 1e-3
+             qvel);
+  exact-terrain - bench 2c: the terrain loop with one trunk plane for the
+             rollouts and the default exact plant (the op-graph step with
+             bilinear contact, 10 x 2 ms), eager and graph as in main, 100
+             ticks each, the height bands of terrain, 25 plane launches and
+             no plant kernel launch per tick; then terrain's deviation
+             check: final_dev_vs_exact_plant_m, the distance between the
+             trunk positions that the per-geom kernel-plant loop and this
+             loop reach from the same start on the same normals in as many
+             ticks (bench 2c_pergeom's honesty check, printed, not gated);
+  ops-engine - op-graph MPPI (engine="ops") of Go1 standing on the jump
+             scene's box (box contact), K=256, H=25, 2 x 10 ms: the graphed
+             solve equals the eager one bit for bit on injected normals for
+             2 solves; 5 solves eager and 5 replayed, every output finite,
+             no substep kernel launched;
   payload  - payload-aware trot MPPI (bench 2d): 0 kg equals the flat
              solver to 1e-6, 1.5 kg changes best_cost; the solve captured
              in a CUDA graph (graph_solve) equals the eager solve bit for
@@ -68,12 +87,12 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              (the flat plant step on the card, read to the host before
              each tick, applying each returned control): the same fields
              and gates, 25 rollout + lag + 1 plant launches per tick;
-  profile  - torch.profiler over 10 ticks of the flat and terrain loops,
-             eager and graph;
+  profile  - torch.profiler over 10 ticks of the flat, terrain and
+             exact-terrain loops, eager and graph;
   timing   - CUDA-event times of every kernel at each of its path shapes,
              beside its plain version and its bound.
-The last lines are the card's name and power limit, one JSON object of
-kernel records, and {"ok": true, "device": {...}}.
+The last lines are the wall time, the card's name and power limit, one JSON
+object of kernel records, and {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -85,6 +104,11 @@ import numpy as np
 TICKS = 250            # flat trot loop
 TERRAIN_TICKS = 100    # per-geom terrain MPC
 TRUNK_TICKS = 50       # trunk-plane terrain MPC
+EXACT_TICKS = TERRAIN_TICKS  # exact-plant terrain MPC, as many as terrain
+OPS_SOLVES = 5         # op-graph MPPI solves a side
+OPS_EQ_SOLVES = 2      # graph vs eager op-graph solves on the same normals
+OPS_CHECK_TOL = {"qpos": 1e-4, "qvel": 5e-3}  # op-graph step vs kernel
+CPU_CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # card step vs CPU step
 PAYLOAD_SOLVES = 100
 PERGEOM_PAYLOAD_SOLVES = 10
 PERGEOM_PAYLOAD_KG = 0.5
@@ -352,16 +376,17 @@ class Smoke:
             rec["launches"] += launches.get(rec["key"], 0)
         return out
 
-    def graph_matches(self, label, step, gstep, first, n=None):
+    def graph_matches(self, label, step, gstep, first, n=None,
+                      calls=EQ_STEPS):
         """The graphed step against the eager one on the same injected
-        normals for EQ_STEPS calls, each side from ``first``: ``step(prev,
-        normals)`` returns (next, outputs), where outputs is a dict of
-        tensors; every output must be equal bit for bit."""
+        normals for ``calls`` calls, each side from ``first``:
+        ``step(prev, normals)`` returns (next, outputs), where outputs is a
+        dict of tensors; every output must be equal bit for bit."""
         torch = self.torch
         gen = torch.Generator(device=self.dev).manual_seed(11)
         e = g = first
         differ, keys = {}, set()
-        for _ in range(EQ_STEPS):
+        for _ in range(calls):
             normals = torch.randn(n, device=self.dev, generator=gen)
             e, oe = step(e, normals)
             g, og = gstep(g, normals)
@@ -373,7 +398,7 @@ class Smoke:
         torch.cuda.synchronize()
         verdict = (f"DIFFER, max abs {differ}" if differ
                    else "equal bit for bit")
-        log(f"[{label}] graph vs eager over {EQ_STEPS} calls on the same "
+        log(f"[{label}] graph vs eager over {calls} calls on the same "
             f"normals: {', '.join(sorted(keys))} {verdict}")
         if differ:
             raise RuntimeError(f"[{label}] the graph differs from the eager "
@@ -484,8 +509,9 @@ class Smoke:
             f", same call, {n} {unit}s each)")
         self.pairs[label] = dict(eager_ms=e, graph_ms=g, n=n, unit=unit)
 
-    def terrain_loop(self, label, plane_mode, ticks):
-        """OpenDOG standing MPC on the generated terrain, kernel plant."""
+    def terrain_loop(self, label, plane_mode, ticks, terrain_plant="kernel"):
+        """OpenDOG standing MPC on the generated terrain: the per-geom
+        kernel plant, or the exact plant (the op-graph step)."""
         torch, dev, cs = self.torch, self.dev, self.cs
         from opendog_tpu_torch.physics import dynamics, make_state
         from opendog_tpu_torch.solvers import MPPIConfig, costs, make_mpc
@@ -502,7 +528,7 @@ class Smoke:
                          rollout_dt=0.01, noise_sigma=0.08, temperature=0.3)
         init, tick, _ = make_mpc(model, cost, cfg, plant_substeps=10,
                                  device=dev, terrain=terr,
-                                 terrain_plant="kernel",
+                                 terrain_plant=terrain_plant,
                                  plane_mode=plane_mode)
         s0 = make_state(model, "home")
         s0.qpos[2] += h0  # the bench's +0.151 on a flat episode
@@ -522,8 +548,9 @@ class Smoke:
 
         rollout_mode = "per_geom" if plane_mode == "per_geom" else True
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"], rollout_mode):
-                cfg.horizon * ticks,
-                cs.launch_key(PLANT["K"], PLANT["n"], "per_geom"): ticks}
+                cfg.horizon * ticks}
+        if terrain_plant == "kernel":  # the exact plant launches no kernel
+            want[cs.launch_key(PLANT["K"], PLANT["n"], "per_geom")] = ticks
         res, gtick = self.tick_pair(label, tick, init, s0, cfg, model.nu,
                                     run, want)
         for side, (wall, qs, _) in res.items():
@@ -553,7 +580,130 @@ class Smoke:
                                    f"tick {DROP_TICKS}")
         self.log_pair(label, res, ticks, "tick")
         carry = init(torch.Generator(device=dev).manual_seed(0), s0)
-        return dict(tick=tick, gtick=gtick, carry=carry)
+        return dict(tick=tick, gtick=gtick, carry=carry, ticks=ticks,
+                    final_qpos={side: r[2].plant.qpos.clone()
+                                for side, r in res.items()})
+
+    def deviation(self, kernel, exact):
+        """bench 2c_pergeom's honesty check (scripts/bench_suite.py:
+        207-214): the trunk position that the kernel-plant loop reaches
+        against the one the exact-plant loop reaches from the same start on
+        the same normals (each drawn from generator seed 0) in as many
+        ticks, eager and replayed."""
+        if kernel["ticks"] != exact["ticks"]:
+            raise RuntimeError("[terrain] the deviation needs as many exact "
+                               "ticks as kernel-plant ticks")
+        dev = {side: float((kernel["final_qpos"][side][:3]
+                            - exact["final_qpos"][side][:3]).norm())
+               for side in ("eager", "graph")}
+        log(f"[terrain] final_dev_vs_exact_plant_m: {dev['eager']:.3e} "
+            f"(graph loops: {dev['graph']:.3e}) after {kernel['ticks']} "
+            f"ticks: per-geom rollouts and kernel plant against trunk-plane "
+            f"rollouts and the exact plant (bench 2c), same start and "
+            f"normals; not gated")
+        return dev
+
+    def ops_check(self):
+        """The op-graph step on the card against the flat kernel and against
+        itself on the CPU, on random Go1 states."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import State, dynamics
+        model, K = self.go1, ROLLOUT["K"]
+        rows = random_batch(model, K)
+        qp, qv, ct = (torch.from_numpy(a.T.copy()) for a in rows)
+
+        def step(m, device):
+            return dynamics.step(m, State(
+                qpos=qp.to(device), qvel=qv.to(device),
+                time=torch.zeros(K, device=device)), ct.to(device))
+
+        got, info = step(model, dev)
+        kern = cs.build_cuda_substep(model, model.timestep, 1, device=dev)
+        kq, kv = kern(*(torch.from_numpy(a).to(dev) for a in rows))
+        cpu, _ = step(model.to("cpu"), "cpu")
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got.qpos).all() and torch.isfinite(
+                got.qvel).all() and torch.isfinite(
+                info.contact.force_world).all()):
+            raise RuntimeError("[ops-check] the step's output is not finite")
+        errs = {
+            "kernel": {"qpos": (got.qpos - kq.T).abs().max().item(),
+                       "qvel": (got.qvel - kv.T).abs().max().item()},
+            "cpu": {"qpos": (got.qpos.cpu() - cpu.qpos).abs().max().item(),
+                    "qvel": (got.qvel.cpu() - cpu.qvel).abs().max().item()}}
+        for what, tol in (("kernel", OPS_CHECK_TOL), ("cpu", CPU_CHECK_TOL)):
+            e = errs[what]
+            log(f"[ops-check] dynamics.step on the card vs "
+                f"{'the flat kernel' if what == 'kernel' else 'the CPU'} on "
+                f"random Go1 states, K={K} x1 dt={model.timestep}: max abs "
+                f"err qpos {e['qpos']:.3e} qvel {e['qvel']:.3e} (tolerance "
+                f"{tol['qpos']:.0e} / {tol['qvel']:.0e})")
+            for k in e:
+                if not e[k] <= tol[k]:
+                    raise RuntimeError(f"[ops-check] the step disagrees with "
+                                       f"{what} on {k}: {e[k]}")
+
+    def ops_engine(self):
+        """Op-graph MPPI of Go1 standing on the jump scene's box: the graphed
+        solve against the eager one, then OPS_SOLVES solves a side."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.assets import load_go1
+        from opendog_tpu_torch.physics import make_state
+        from opendog_tpu_torch.solvers import MPPIConfig, costs, graph_solve, mppi
+        model = load_go1("jump", device=dev)
+        box_top = float((model.wbox_pos[0, 2] + model.wbox_size[0, 2]).item())
+        cost = costs.standing_cost(model, 0.265 + box_top,
+                                   model.key_qpos[0, 7:])
+        cfg = MPPIConfig(horizon=25, num_samples=256, n_substeps=2,
+                         rollout_dt=0.01, noise_sigma=0.12, temperature=0.3,
+                         engine="ops")
+        solve = mppi.make_solver(model, cost, cfg, device=dev)
+        st = make_state(model, "home")
+        st.qpos[0] += float(model.wbox_pos[0, 0].item())  # over the box
+        st.qpos[2] += box_top
+        ms0 = mppi.init_state(model, cfg)
+        n = (cfg.num_samples, cfg.horizon, model.nu)
+        t0 = time.perf_counter()
+        gsolve = graph_solve(solve, st, ms0, torch.zeros(n, device=dev))
+        torch.cuda.synchronize()
+        log(f"[ops-engine] captured the solve in "
+            f"{time.perf_counter() - t0:.3f} s: substep launches per replay "
+            f"{dict(gsolve.graph.launches)}")
+
+        def step(fn):
+            def call(ms, normals):
+                ctrl, ms, stats = fn(st, ms, None, normals)
+                return ms, dict(ctrl=ctrl, nominal=ms.nominal, **stats)
+            return call
+
+        self.graph_matches("ops-engine", step(solve), step(gsolve), ms0, n,
+                           calls=OPS_EQ_SOLVES)
+        res = {}
+        for side, fn in (("eager", solve), ("graph", gsolve)):
+            gen = torch.Generator(device=dev).manual_seed(0)
+
+            def run():
+                ms, outs = ms0, []
+                t0 = time.perf_counter()
+                for _ in range(OPS_SOLVES):
+                    ctrl, ms, stats = fn(st, ms, gen)
+                    outs.append(torch.cat([ctrl, ms.nominal.reshape(-1)]
+                                          + [v.reshape(1)
+                                             for v in stats.values()]))
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, torch.stack(outs), stats
+
+            res[side] = self.counted(f"ops-engine {side}", run, {})
+            wall, outs, stats = res[side]
+            finite = bool(torch.isfinite(outs).all().item())
+            log(f"[ops-engine] {side}: {OPS_SOLVES} solves of Go1 on the "
+                f"jump box in {wall:.3f} s: {1e3 * wall / OPS_SOLVES:.3f} "
+                f"ms/solve | best_cost {float(stats['best_cost']):.4f} ess "
+                f"{float(stats['ess']):.2f} | finite {finite}")
+            if not finite:
+                raise RuntimeError(f"[ops-engine] {side}: non-finite solve "
+                                   "output")
+        self.log_pair("ops-engine", res, OPS_SOLVES, "solve")
 
     def solve_pair(self, label, pay, st, ms0, payload, cfg, n_solves, want):
         """A payload solver and its CUDA graph: bit for bit on injected
@@ -1071,6 +1221,7 @@ def occupancy(lib, cs, smoke):
 
 
 def main():
+    start = time.perf_counter()
     import torch
 
     # ---- device ----
@@ -1100,15 +1251,21 @@ def main():
     occupancy(lib, cuda_step, smoke)
 
     smoke.check_all()
+    smoke.ops_check()
     flat = smoke.flat_loop()
     terr = smoke.terrain_loop("terrain", "per_geom", TERRAIN_TICKS)
     smoke.terrain_loop("terrain-trunk", "trunk", TRUNK_TICKS)
+    exact = smoke.terrain_loop("exact-terrain", "trunk", EXACT_TICKS,
+                               terrain_plant="exact")
+    deviation = smoke.deviation(terr, exact)
+    smoke.ops_engine()
     smoke.payload_solves()
     smoke.batch_steps()
     smoke.pergeom_payload_solves()
     realtime = smoke.realtime(flat)
     bridge = smoke.bridge(flat, realtime["host_loop_control_delay_ticks"])
-    for label, path in (("flat", flat), ("terrain", terr)):
+    for label, path in (("flat", flat), ("terrain", terr),
+                        ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
         smoke.profile(f"{label} graph", path["gtick"], path["carry"])
     smoke.planes_cost(terr["carry"].plant.qpos)
@@ -1119,6 +1276,9 @@ def main():
         + json.dumps(smoke.pairs))
     log("[summary] realtime: " + json.dumps(realtime))
     log("[summary] bridge: " + json.dumps(bridge))
+    log("[summary] terrain final_dev_vs_exact_plant_m: "
+        + json.dumps(deviation))
+    log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

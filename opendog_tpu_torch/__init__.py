@@ -2,11 +2,11 @@
 
 A second package beside the JAX one, which stays the reference.  It
 carries the Go1 flat-ground MPPI trot loop, OpenDOG terrain MPC and
-payload-aware MPPI: the MJCF models, kinematics and terrain
-(:mod:`.physics`, :mod:`.assets`), the fused physics substep as CUDA
-kernels in each of its modes with their plain PyTorch version
-(:mod:`.ops`, ``csrc/``) and the MPPI / MPC solvers with their costs
-(:mod:`.solvers`).  Entry points run
+payload-aware MPPI: the MJCF models, the op-graph Featherstone step and
+terrain (:mod:`.physics`, :mod:`.assets`), the fused physics substep as
+CUDA kernels in each of its modes with their plain PyTorch version
+(:mod:`.ops`, ``csrc/``) and the MPPI / MPC solvers with their costs,
+on the kernel or on the op-graph step (:mod:`.solvers`).  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
 """
 

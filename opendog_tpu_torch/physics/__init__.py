@@ -1,7 +1,7 @@
 import torch
 
-from .model import (JNT_FREE, JNT_HINGE, JNT_NONE, Model, State,  # noqa: F401
-                    Terrain, terrain_from_numpy)
+from .model import (JNT_FREE, JNT_HINGE, JNT_NONE, Contact,  # noqa: F401
+                    Model, State, StepInfo, Terrain, terrain_from_numpy)
 from .mjcf import load_model  # noqa: F401
 from . import dynamics, spatial, terrain  # noqa: F401
 

@@ -4,8 +4,9 @@ Counterpart of ``opendog_tpu/physics/model.py``: the same field names, with
 static metadata kept as Python ints and tuples and every array a tensor on
 one device.  A ``Model`` is built once by :mod:`.mjcf` (or carried across
 from numpy arrays with :func:`model_from_arrays`) and read by the kernel
-tables, the costs and the solvers.  A ``Terrain`` holds one heightfield
-on a device (:func:`terrain_from_numpy` carries one across from numpy).
+tables, the physics step, the costs and the solvers.  A ``Terrain`` holds
+one heightfield on a device (:func:`terrain_from_numpy` carries one across
+from numpy); ``Contact`` and ``StepInfo`` are the step's diagnostics.
 """
 from __future__ import annotations
 
@@ -177,6 +178,30 @@ class Terrain:
 
     def to(self, device) -> "Terrain":
         return Terrain(height=self.height.to(device))
+
+
+@dataclass
+class Contact:
+    """Per-geom ground-contact diagnostics of the step (counterpart of the
+    JAX package's ``Contact``), batch-first: ``(..., ng, 3)`` and
+    ``(..., ng)`` over the step's leading batch axes."""
+
+    force_world: torch.Tensor  # (..., ng, 3) contact force on body, world
+    force_body: torch.Tensor  # (..., ng, 3) same force in the geom's body frame
+    penetration: torch.Tensor  # (..., ng) >0 when touching
+    in_contact: torch.Tensor  # (..., ng) bool
+
+
+@dataclass
+class StepInfo:
+    """Auxiliary outputs of one physics step (its last substep),
+    batch-first."""
+
+    contact: Contact
+    qfrc_actuator: torch.Tensor  # (..., nv)
+    qacc: torch.Tensor  # (..., nv)
+    xpos: torch.Tensor  # (..., nb, 3) body frame origins, world
+    xquat: torch.Tensor  # (..., nb, 4)
 
 
 def terrain_from_numpy(height: np.ndarray, device) -> Terrain:

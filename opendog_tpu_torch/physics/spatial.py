@@ -1,9 +1,10 @@
-"""Quaternion and orientation helpers (port of
-``opendog_tpu/physics/spatial.py:30-138``).
+"""Spatial algebra and rotation helpers (port of
+``opendog_tpu/physics/spatial.py``).
 
 Quaternions are wxyz, unit norm, rotating a vector from the local frame into
-the world frame; every function works on the trailing axis and broadcasts
-over leading batch axes.
+the world frame.  Spatial (6D) motion vectors are ``[omega; v_o]`` and force
+vectors ``[torque_o; force]`` about one common origin.  Every function works
+on the trailing axes and broadcasts over leading batch axes.
 """
 from __future__ import annotations
 
@@ -99,3 +100,101 @@ def euler_from_quat(quat: torch.Tensor):
     ``euler_from_quaternion`` (rewards/walk_environment_reward_calc.py:372-390)."""
     yaw, pitch, roll = quat_to_ypr(quat)
     return roll, pitch, yaw
+
+
+# ---------------------------------------------------------------------------
+# Quaternions of the op-graph step (port of spatial.py:49-116)
+# ---------------------------------------------------------------------------
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """The conjugate (w, -x, -y, -z): the JAX package multiplies by a
+    constant sign vector, here the vector part is negated (the same bits,
+    and no constant made from host data)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector v by the inverse of q (world -> local)."""
+    return quat_rotate(quat_conj(q), v)
+
+
+def quat_exp(w: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Exponential map: rotation vector w (axis*angle) -> quaternion."""
+    angle = torch.linalg.norm(w, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    # sinc-safe: sin(half)/angle -> 0.5 as angle -> 0
+    k = torch.where(angle > eps,
+                    torch.sin(half) / torch.clamp(angle, min=eps),
+                    torch.full_like(angle, 0.5))
+    return quat_normalize(torch.cat([torch.cos(half), w * k], dim=-1))
+
+
+def quat_integrate(q: torch.Tensor, omega_local: torch.Tensor,
+                   dt) -> torch.Tensor:
+    """Integrate orientation with body-frame angular velocity (MuJoCo
+    free-joint convention: rotational qvel of a free joint is expressed in
+    the child body frame)."""
+    return quat_normalize(quat_mul(q, quat_exp(omega_local * dt)))
+
+
+# ---------------------------------------------------------------------------
+# 3D helpers and spatial (6D) algebra at a common origin (spatial.py:146-209).
+# Motion = [omega; v_o], force = [torque_o; force].
+# ---------------------------------------------------------------------------
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric cross-product matrix: skew(v) @ u == cross(v, u)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def spatial_inertia_at_origin(mass: torch.Tensor, com: torch.Tensor,
+                              inertia_com: torch.Tensor) -> torch.Tensor:
+    """6x6 spatial inertia about the reference origin.
+
+    ``inertia_com`` is the 3x3 rotational inertia about the body COM in
+    world axes; ``com`` the world-frame COM relative to the origin.
+    I = [[I_c - m cx cx, m cx], [-m cx, m 1]] with cx = skew(com)."""
+    cx = skew(com)
+    m = mass[..., None, None]
+    eye = torch.eye(3, dtype=com.dtype, device=com.device)
+    top_left = inertia_com - m * (cx @ cx)
+    top_right = m * cx
+    bot_left = -m * cx
+    bot_right = (m * eye).expand(cx.shape)
+    top = torch.cat([top_left, top_right], dim=-1)
+    bot = torch.cat([bot_left, bot_right], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def motion_cross(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Spatial motion cross product  v x m  (both [omega; v_o])."""
+    w, vo = v[..., :3], v[..., 3:]
+    mw, mv = m[..., :3], m[..., 3:]
+    return torch.cat([_cross(w, mw), _cross(w, mv) + _cross(vo, mw)], dim=-1)
+
+
+def force_cross(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Spatial force cross product  v x* f  (f = [torque_o; force])."""
+    w, vo = v[..., :3], v[..., 3:]
+    tau, frc = f[..., :3], f[..., 3:]
+    return torch.cat([_cross(w, tau) + _cross(vo, frc), _cross(w, frc)],
+                     dim=-1)
+
+
+def point_velocity(spatial_vel: torch.Tensor,
+                   point: torch.Tensor) -> torch.Tensor:
+    """Linear velocity of the body-fixed point at world position ``point``
+    given the body spatial velocity at the origin."""
+    w, vo = spatial_vel[..., :3], spatial_vel[..., 3:]
+    return vo + _cross(w, point)

@@ -1,16 +1,18 @@
 """Receding-horizon MPC loop at a 50 Hz control rate.
 
 Port of ``opendog_tpu/solvers/mpc.py`` (``MPCCarry``, ``make_mpc`` and the
-kernel plants of ``_make_plant_step``, lines 33-87 and 98-180): one
-``tick`` re-plans with the MPPI solver and advances the plant one 50 Hz
-step through the substep kernel (K = 1, ``plant_substeps`` substeps at the
-model's timestep in one launch): the flat kernel on flat ground, the
-per-geom plane kernel on a terrain.  ``run`` is a Python loop over ticks.
-:func:`graph_tick` replays a tick from a CUDA graph (the counterpart of the
-JAX package's jitted tick), and :class:`RealtimeController` (lines
-183-327) is the host-side pipelined 50 Hz tick of the robot bridge.  The
-exact-bilinear terrain plant (it needs the op-graph step, ROADMAP M8) is
-not ported yet.
+plants of ``_make_plant_step``, lines 33-180): one ``tick`` re-plans with
+the MPPI solver and advances the plant one 50 Hz step of
+``plant_substeps`` substeps at the model's timestep.  With the kernel
+engine the plant is the substep kernel (K = 1, one launch): the flat
+kernel on flat ground, the per-geom plane kernel on a terrain with
+``terrain_plant="kernel"``.  On a terrain with the default
+``terrain_plant="exact"``, and with the op-graph engine, it is the op-graph
+step ``physics.dynamics.step`` with exact bilinear contact.  ``run`` is a
+Python loop over ticks.  :func:`graph_tick` replays a tick from a CUDA
+graph (the counterpart of the JAX package's jitted tick), and
+:class:`RealtimeController` (lines 183-327) is the host-side pipelined
+50 Hz tick of the robot bridge.
 """
 from __future__ import annotations
 
@@ -40,25 +42,28 @@ class MPCCarry:
     ctrl_queue: Optional[torch.Tensor] = None
 
 
-def _check_terrain_plant(terrain: Optional[Terrain],
-                         terrain_plant: str) -> None:
-    """Raises for a terrain plant that is unknown or not ported."""
-    if terrain_plant not in TERRAIN_PLANTS:
-        raise ValueError(f"terrain_plant must be one of {TERRAIN_PLANTS}, "
-                         f"got {terrain_plant!r}")
-    if terrain is not None and terrain_plant == "exact":
-        raise NotImplementedError(
-            "terrain_plant='exact' needs the op-graph physics step with "
-            "exact bilinear hfield contact, which is not ported yet "
-            "(ROADMAP M8); pass terrain_plant='kernel'")
-
-
 def _make_plant_step(model, plant_substeps: int, device,
-                     terrain: Optional[Terrain] = None) -> Callable:
-    """One 50 Hz plant tick: ``plant_substeps`` kernel substeps at the
-    model's timestep, K = 1, one launch.  On a terrain the kernel takes
-    per-geom planes (each paw contacts the terrain's tangent plane at its
-    own xy), recomputed from the plant state every tick."""
+                     terrain: Optional[Terrain] = None,
+                     engine: str = "kernel",
+                     terrain_plant: str = "exact") -> Callable:
+    """One 50 Hz plant tick of ``plant_substeps`` substeps at the model's
+    timestep, as the JAX package picks it:
+
+    * ``engine="kernel"`` on flat ground: the flat kernel, K = 1, one
+      launch;
+    * ``engine="kernel"`` on a terrain with ``terrain_plant="kernel"``: the
+      per-geom plane kernel, each paw on the terrain's tangent plane at its
+      own xy, recomputed from the plant state every tick;
+    * otherwise (a terrain with ``"exact"``, or ``engine="ops"``): the
+      op-graph step with exact bilinear contact (``dynamics.step``)."""
+    if engine != "kernel" or (terrain is not None
+                              and terrain_plant == "exact"):
+        def plant_step_ops(st: State, ctrl: torch.Tensor) -> State:
+            return dynamics.step(model, st, ctrl, terrain,
+                                 n_substeps=plant_substeps)[0]
+
+        return plant_step_ops
+
     plant_sub = build_cuda_substep(
         model, model.timestep, n_substeps=plant_substeps, device=device,
         with_plane="per_geom" if terrain is not None else False)
@@ -101,11 +106,14 @@ def make_mpc(
     stacked); without it the carry's generator draws on the device.
 
     With ``terrain`` the rollouts contact its local planes (``plane_mode``,
-    see ``mppi.make_solver``) and the plant integrates on the per-geom
-    plane kernel (``terrain_plant="kernel"``).  The JAX package's default
-    ``terrain_plant="exact"``, the op-graph step with exact bilinear
-    contact, is not ported (ROADMAP M8) and raises."""
-    _check_terrain_plant(terrain, terrain_plant)
+    see ``mppi.make_solver``) and the plant is the op-graph step with exact
+    bilinear contact (``terrain_plant="exact"``, the default, as in the JAX
+    package) or the per-geom plane kernel (``"kernel"``).  With
+    ``config.engine="ops"`` both the rollouts and the plant run the
+    op-graph step (see :func:`_make_plant_step`)."""
+    if terrain_plant not in TERRAIN_PLANTS:
+        raise ValueError(f"terrain_plant must be one of {TERRAIN_PLANTS}, "
+                         f"got {terrain_plant!r}")
     device = resolve_device(device)
     use_full_fp32()
     model = model.to(device)
@@ -113,7 +121,8 @@ def make_mpc(
         terrain = terrain.to(device)
     solve = mppi.make_solver(model, step_cost, config, device=device,
                              terrain=terrain, plane_mode=plane_mode)
-    plant_step = _make_plant_step(model, plant_substeps, device, terrain)
+    plant_step = _make_plant_step(model, plant_substeps, device, terrain,
+                                  config.engine, terrain_plant)
     rng = model.actuator_ctrlrange
     hold_ctrl = torch.clamp(model.key_ctrl[0], rng[:, 0], rng[:, 1])
 
@@ -305,11 +314,11 @@ class RealtimeController:
     normals unless the call passes ``normals``.  PyTorch cannot reproduce
     ``jax.random``, so the tests pass the JAX controller's draws.
 
-    On a terrain the solves use one trunk plane (``plane_mode="trunk"``,
-    as the JAX class's solver does).  The JAX class's plants on a terrain
-    are the exact-bilinear step, which is not ported (ROADMAP M8): there
-    benchmark mode raises in ``start`` and ``compensate=True`` raises here,
-    as ``make_mpc`` does; an uncompensated bridge solve works.
+    On a terrain the kernel engine's solves use one trunk plane
+    (``plane_mode="trunk"``, as the JAX class's solver does), and the
+    plants (benchmark mode's internal plant, the compensated solve's
+    roll-forward) are the op-graph step with exact bilinear contact, the
+    JAX class's default ``terrain_plant="exact"``.
     """
 
     def __init__(self, model, step_cost: Callable, config: mppi.MPPIConfig,
@@ -319,8 +328,6 @@ class RealtimeController:
                  compensate: bool = False, device=None):
         self.lag = max(0, int(lag))
         self.compensate = bool(compensate) and self.lag > 0
-        if self.compensate:
-            _check_terrain_plant(terrain, "exact")
         self.device = resolve_device(device)
         use_full_fp32()
         self.model = model.to(self.device)
@@ -335,7 +342,8 @@ class RealtimeController:
         if self.compensate:
             solve = _compensated_solver(
                 solve, _make_plant_step(self.model, plant_substeps,
-                                        self.device), self.lag)
+                                        self.device, self.terrain,
+                                        config.engine), self.lag)
         self._solve = solve  # bridge mode; graphed at the first bridge_tick
         self._bridge = None
         self._nominal = None  # bridge mode's solver state, made lazily

@@ -1,12 +1,20 @@
-"""MPPI (Model Predictive Path Integral) solver on the substep kernel.
+"""MPPI (Model Predictive Path Integral) solver on the substep kernel or
+the op-graph physics step.
 
 Port of ``opendog_tpu/solvers/mppi.py`` on one device, on flat ground or on
-a terrain (through the local contact planes of the substep kernel), with or
-without a carried payload: no sample mesh, command, anchor or terminal cost
-(ROADMAP M10, M14).  One solve samples K smoothed, clipped control plans
-around the nominal, rolls all of them out through the substep kernel (one
-launch per control step, the ``rollout_costs_pallas`` path of the JAX
-package), and moves the nominal to their softmax-weighted mean.
+a terrain, with or without a carried payload: no sample mesh, command,
+anchor or terminal cost (ROADMAP M10, M14).  One solve samples K smoothed,
+clipped control plans around the nominal, rolls all of them out, and moves
+the nominal to their softmax-weighted mean.  Two rollout engines, named
+after what runs them (the JAX package names them after its backends):
+
+* ``engine="kernel"`` (JAX ``"pallas"``): the substep kernel, one launch
+  per control step for all K rollouts (``rollout_costs_pallas``); on a
+  terrain the rollouts contact local tangent planes.
+* ``engine="ops"`` (JAX ``"xla"``, the JAX default): the op-graph step
+  ``physics.dynamics.step`` over all K rollouts at once, with exact
+  bilinear terrain contact and static boxes (the Go1 ``jump`` and
+  ``landing`` platforms need it: the kernel has no box contact).
 
 Noise: the JAX package draws one key per sample; PyTorch cannot reproduce
 those bits.  ``solve`` therefore takes the ``(K, H, nu)`` standard-normal
@@ -28,6 +36,7 @@ from ..physics import State, Terrain, dynamics
 from .graph import GraphedTick
 
 PLANE_MODES = ("trunk", "per_geom")
+ENGINES = ("kernel", "ops")
 
 
 @dataclass(frozen=True)
@@ -40,8 +49,8 @@ class MPPIConfig:
     rollout_dt: float = 0.0    # rollout physics dt; 0 -> model.timestep
     smooth_alpha: float = 0.6  # noise low-pass (colored exploration)
     gamma: float = 1.0         # cost discount
-    engine: str = "kernel"     # the substep kernel (K1); the only engine
-    # until the op-graph physics is ported (ROADMAP M8)
+    engine: str = "kernel"     # rollout physics: "kernel" (the substep
+    # kernel, JAX "pallas") or "ops" (the op-graph step, JAX "xla")
 
 
 @dataclass
@@ -78,16 +87,23 @@ def make_solver(
     under the solve-from state, computed once per solve: with
     ``plane_mode="trunk"`` one plane at the trunk's xy shared by every
     geom (kernel K3), with ``"per_geom"`` each geom's own plane (K4).
-    With ``with_payload=True`` the solve takes a trailing ``payload``, a
-    point mass [kg] rigidly attached at the trunk origin that every rollout
-    carries (K2): a float, or a one-element float32 tensor on the device.
+    With ``engine="ops"`` the rollouts run the op-graph step on the
+    terrain itself (exact bilinear contact; ``plane_mode`` is unused).
+    With ``with_payload=True`` (kernel engine only) the solve takes a
+    trailing ``payload``, a point mass [kg] rigidly attached at the trunk
+    origin that every rollout carries (K2): a float, or a one-element
+    float32 tensor on the device.
 
     A solve copies no host data to the device and reads nothing back, so
     :func:`graph_solve` can capture it in a CUDA graph."""
-    if config.engine != "kernel":
-        raise ValueError(
-            f"engine {config.engine!r} is not ported: the rollouts run on "
-            "the substep kernel ('kernel'); the op-graph engine is ROADMAP M8")
+    if config.engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES} (the JAX "
+                         "package's 'pallas' and 'xla'), got "
+                         f"{config.engine!r}")
+    if with_payload and config.engine != "kernel":
+        raise ValueError("payload-aware solves ride the substep kernel's "
+                         "payload rows: with_payload=True needs "
+                         "engine='kernel'")
     if plane_mode not in PLANE_MODES:
         raise ValueError(f"plane_mode must be one of {PLANE_MODES}, got "
                          f"{plane_mode!r}")
@@ -101,11 +117,14 @@ def make_solver(
     dt_tick = dt * config.n_substeps
     if terrain is not None:
         terrain = terrain.to(device)
-    with_plane = (False if terrain is None
-                  else "per_geom" if plane_mode == "per_geom" else True)
-    psub = build_cuda_substep(model, dt, n_substeps=config.n_substeps,
-                              device=device, with_plane=with_plane,
-                              with_payload=with_payload)
+    if config.engine == "kernel":
+        with_plane = (False if terrain is None
+                      else "per_geom" if plane_mode == "per_geom" else True)
+        psub = build_cuda_substep(model, dt, n_substeps=config.n_substeps,
+                                  device=device, with_plane=with_plane,
+                                  with_payload=with_payload)
+    else:
+        rollout_model = model.replace(timestep=dt)
 
     def _local_plane(state: State, k: int) -> torch.Tensor:
         """Contact plane rows of the rollouts: the terrain's tangent
@@ -123,8 +142,8 @@ def make_solver(
             row = torch.cat([n, torch.dot(n, p0)[None]])  # (4,)
         return row[:, None].expand(row.shape[0], k).contiguous()
 
-    def rollout_costs(state: State, candidates: torch.Tensor,
-                      payload=None) -> torch.Tensor:
+    def rollout_costs_kernel(state: State, candidates: torch.Tensor,
+                             payload=None) -> torch.Tensor:
         """(K,) total cost of every candidate plan: carry in the (rows, K)
         layout, one kernel launch per control step."""
         k = candidates.shape[0]
@@ -150,6 +169,31 @@ def make_solver(
             prev_ctrl = ctrl
             disc = disc * config.gamma
         return total
+
+    def rollout_costs_ops(state: State, candidates: torch.Tensor,
+                          payload=None) -> torch.Tensor:
+        """(K,) total cost of every candidate plan: the op-graph step over
+        all K rollouts at once, one call per control step (the JAX
+        package's vmapped ``rollout_cost``)."""
+        k = candidates.shape[0]
+        st = State(qpos=state.qpos.expand(k, model.nq),
+                   qvel=state.qvel.expand(k, model.nv),
+                   time=state.time.expand(k))
+        prev_ctrl = candidates[:, 0]
+        disc = 1.0
+        total = None
+        for h in range(H):
+            ctrl = candidates[:, h]
+            st, _ = dynamics.step(rollout_model, st, ctrl, terrain,
+                                  n_substeps=config.n_substeps)
+            c = step_cost(st, ctrl, prev_ctrl) * disc
+            total = c if total is None else total + c
+            prev_ctrl = ctrl
+            disc = disc * config.gamma
+        return total
+
+    rollout_costs = (rollout_costs_kernel if config.engine == "kernel"
+                     else rollout_costs_ops)
 
     def sample_candidates(nominal: torch.Tensor,
                           normals: torch.Tensor) -> torch.Tensor:

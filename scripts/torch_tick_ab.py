@@ -19,8 +19,10 @@ ticks; the payload solver of [payload] with 1.5 kg warmed up for 3 solves
 and timed over SOLVES solves; then the OpenDOG terrain loops of [terrain]
 (per-geom planes for rollouts and plant) and [terrain-trunk] (one trunk
 plane for the rollouts, per-geom planes for the plant) on the generated
-terrain of seed 0, each warmed up for 5 ticks and timed over TERRAIN_TICKS
-ticks; and the per-geom payload solver of [pergeom-payload] (OpenDOG
+terrain of seed 0, and [exact-terrain] (bench 2c: one trunk plane for the
+rollouts, the default exact plant, the op-graph step with bilinear
+contact), each warmed up for 5 ticks and timed over TERRAIN_TICKS ticks;
+and the per-geom payload solver of [pergeom-payload] (OpenDOG
 standing on that terrain with 0.5 kg) warmed up for 3 solves and timed
 over SOLVES.  Each is timed by the host clock around work that ends in
 ``torch.cuda.synchronize()``.  The runs go other, this, this, other, other,
@@ -93,10 +95,11 @@ cost = costs.standing_cost(dog, 0.0694 + h0, dog.key_qpos[0, 7:])
 cfg = MPPIConfig(horizon=25, num_samples=256, n_substeps=2, rollout_dt=0.01,
                  noise_sigma=0.08, temperature=0.3)
 terrain_ms = {}
-for mode in ("per_geom", "trunk"):
+for mode in ("per_geom", "trunk", "exact"):
+    plant = dict(terrain_plant="exact", plane_mode="trunk") if mode == \
+        "exact" else dict(terrain_plant="kernel", plane_mode=mode)
     init, tick, _ = make_mpc(dog, cost, cfg, plant_substeps=10, device=dev,
-                             terrain=terr, terrain_plant="kernel",
-                             plane_mode=mode)
+                             terrain=terr, **plant)
     s0 = make_state(dog, "home")
     s0.qpos[2] += h0
     carry_t = init(torch.Generator(device=dev).manual_seed(0), s0)
@@ -128,6 +131,7 @@ pergeom_solve_ms = 1e3 * (time.perf_counter() - t0) / %d
 print(json.dumps({"tick_ms": tick_ms, "solve_ms": solve_ms,
                   "pergeom_tick_ms": terrain_ms["per_geom"],
                   "trunk_tick_ms": terrain_ms["trunk"],
+                  "exact_tick_ms": terrain_ms["exact"],
                   "pergeom_payload_solve_ms": pergeom_solve_ms,
                   "final_x": float(carry.plant.qpos[0].item())}))
 """ % (TICKS, TICKS, SOLVES, SOLVES, TERRAIN_TICKS, TERRAIN_TICKS, SOLVES,
@@ -162,8 +166,8 @@ def main() -> int:
     runs = [(label, run_checkout(*sides[label])) for label in order]
     res = {label: {key: [r[key] for lab, r in runs if lab == label]
                    for key in ("tick_ms", "solve_ms", "pergeom_tick_ms",
-                               "trunk_tick_ms", "pergeom_payload_solve_ms",
-                               "final_x")}
+                               "trunk_tick_ms", "exact_tick_ms",
+                               "pergeom_payload_solve_ms", "final_x")}
            for label in sides}
     print(json.dumps({"sides": {k: list(v) for k, v in sides.items()},
                       "card": smi, "ticks": TICKS, "solves": SOLVES,

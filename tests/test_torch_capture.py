@@ -29,7 +29,9 @@ def _refuse_host_data(monkeypatch):
 
 def _mpc(path, lag):
     """(model, init, tick) of make_mpc: Go1 on flat ground, or OpenDOG on a
-    generated terrain with per-geom planes or one trunk plane."""
+    generated terrain with per-geom planes or one trunk plane (kernel
+    plant), or with one trunk plane and the exact plant ("exact", the
+    default)."""
     if path == "flat":
         m = assets.load_go1("flat", device="cpu")
         cost = costs.standing_cost(m, 0.265, m.key_qpos[0, 7:])
@@ -40,6 +42,11 @@ def _mpc(path, lag):
     m = assets.load_opendog("terrain", device="cpu")
     terr = terrain_lib.generate_terrain(m, torch.Generator().manual_seed(0))
     cost = costs.standing_cost(m, 0.0694, m.key_qpos[0, 7:])
+    if path == "exact":
+        init, tick, _ = make_mpc(m, cost, CFG, plant_substeps=2,
+                                 ctrl_lag=lag, lag_compensation=lag > 0,
+                                 device="cpu", terrain=terr)
+        return m, init, tick
     init, tick, _ = make_mpc(m, cost, CFG, plant_substeps=2, device="cpu",
                              terrain=terr, terrain_plant="kernel",
                              plane_mode=path)
@@ -47,11 +54,13 @@ def _mpc(path, lag):
 
 
 @pytest.mark.parametrize("path,lag", [("flat", 0), ("flat", 2),
-                                      ("per_geom", 0), ("trunk", 0)])
+                                      ("per_geom", 0), ("trunk", 0),
+                                      ("exact", 0), ("exact", 2)])
 def test_tick_builds_no_tensor_from_host_data(monkeypatch, path, lag):
     """An eager make_mpc tick, on flat ground (Go1, lag-free and with a
     compensated lag of 2) and on a terrain (OpenDOG, per-geom planes or
-    one trunk plane)."""
+    one trunk plane with the kernel plant; the exact plant, lag-free and
+    with a compensated lag of 2)."""
     m, init, tick = _mpc(path, lag)
     carry = init(torch.Generator().manual_seed(0), make_state(m, "home"))
     carry, _ = tick(carry)
@@ -88,6 +97,37 @@ def test_payload_solve_builds_no_tensor_from_host_data(monkeypatch,
     got = solve(st, ms, torch.Generator().manual_seed(1), None, payload)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].nominal, want[1].nominal)
+
+
+@pytest.mark.parametrize("scene", ["flat", "jump", "terrain"])
+def test_ops_engine_builds_no_tensor_from_host_data(monkeypatch, scene):
+    """An ``engine="ops"`` solve (Go1 on flat ground and on the jump box,
+    OpenDOG on a generated terrain) and an ops-engine MPC tick, whose plant
+    is the op-graph step too."""
+    terr = None
+    if scene == "terrain":
+        m = assets.load_opendog("terrain", device="cpu")
+        terr = terrain_lib.generate_terrain(m,
+                                            torch.Generator().manual_seed(0))
+        cost = costs.standing_cost(m, 0.0694, m.key_qpos[0, 7:])
+    else:
+        m = assets.load_go1(scene, device="cpu")
+        cost = costs.standing_cost(m, 0.265, m.key_qpos[0, 7:])
+    cfg = MPPIConfig(horizon=2, num_samples=4, n_substeps=1, rollout_dt=0.01,
+                     noise_sigma=0.05, engine="ops")
+    solve = mppi.make_solver(m, cost, cfg, device="cpu", terrain=terr)
+    init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=2, device="cpu",
+                             terrain=terr)
+    st, ms = make_state(m, "home"), mppi.init_state(m, cfg)
+    want = solve(st, ms, torch.Generator().manual_seed(1))
+    carry = init(torch.Generator().manual_seed(0), st)
+    carry, _ = tick(carry)
+    _refuse_host_data(monkeypatch)
+    got = solve(st, ms, torch.Generator().manual_seed(1))
+    carry, out = tick(carry)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].nominal, want[1].nominal)
+    assert torch.isfinite(out["qpos"]).all()
 
 
 def test_graphed_tick_needs_cuda():

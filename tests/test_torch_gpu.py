@@ -232,12 +232,13 @@ def _normals(n, cfg, nu, device, seed=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["flat", "per_geom", "trunk"])
+@pytest.mark.parametrize("path", ["flat", "per_geom", "trunk", "exact"])
 def test_graph_tick_equals_eager_tick(cuda_device, path):
     """The make_mpc tick replayed from a CUDA graph equals the eager tick
     bit for bit on the same normals from the same carry (it replays the
     same kernels), and each replay counts one tick's launches: 25 rollout
-    launches and one plant launch."""
+    launches and one plant launch, or none on the exact plant (the
+    op-graph step, bench 2c: trunk-plane rollouts)."""
     from opendog_tpu_torch.physics import make_state
     from opendog_tpu_torch.solvers import graph_tick, make_mpc
     if path == "flat":
@@ -247,7 +248,8 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     else:
         m, terr, cost = _dog_terrain(cuda_device)
         cfg = _bench_config(0.08)
-        extra = dict(terrain=terr, terrain_plant="kernel", plane_mode=path)
+        extra = (dict(terrain=terr) if path == "exact" else
+                 dict(terrain=terr, terrain_plant="kernel", plane_mode=path))
         s0 = make_state(m, "home")
     init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=10,
                              device=cuda_device, **extra)
@@ -261,10 +263,11 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     gtick = graph_tick(tick, carry0, normals[0])
     rollout = (False if path == "flat" else
                "per_geom" if path == "per_geom" else True)
-    assert dict(gtick.graph.launches) == {
-        cuda_step.launch_key(256, 2, rollout): 25,
-        cuda_step.launch_key(1, 10, False if path == "flat" else "per_geom"):
-        1}
+    want_launches = {cuda_step.launch_key(256, 2, rollout): 25}
+    if path != "exact":
+        want_launches[cuda_step.launch_key(
+            1, 10, False if path == "flat" else "per_geom")] = 1
+    assert dict(gtick.graph.launches) == want_launches
     cuda_step.LAUNCHES.clear()
     carry = carry0
     for n, want in zip(normals, eager):
@@ -387,3 +390,67 @@ def test_compensated_bridge_on_card(cuda_device):
         np.testing.assert_array_equal(got[lag:], np.array(want)[:-lag])
         last = rtc.drain()
         np.testing.assert_array_equal(last, want[-1])
+
+
+# -- the op-graph step and the op-graph engine on the card ------------------
+
+@pytest.mark.gpu
+def test_op_step_on_card_matches_cpu_and_kernel(cuda_device):
+    """``dynamics.step`` on the card, on chip_smoke.py's random Go1 states
+    at K=256 with one 2 ms substep: against the same step on the CPU on the
+    same inputs (1e-4 qpos, 1e-3 qvel) and against the flat kernel K1 (the
+    cross-engine tolerance of tests/test_pallas_core.py:59-75: 1e-4 qpos,
+    5e-3 qvel)."""
+    from opendog_tpu_torch.physics import State, dynamics
+    m = load_go1("flat", device=cuda_device)
+    mc = m.to("cpu")
+    rows = random_batch(m, 256)
+    qp, qv, ct = (torch.from_numpy(a.T.copy()) for a in rows)
+    st = State(qpos=qp, qvel=qv, time=torch.zeros(256))
+    want, _ = dynamics.step(mc, st, ct)
+    got, info = dynamics.step(m, State(qpos=qp.to(cuda_device),
+                                       qvel=qv.to(cuda_device),
+                                       time=torch.zeros(256,
+                                                        device=cuda_device)),
+                              ct.to(cuda_device))
+    np.testing.assert_allclose(got.qpos.cpu().numpy(), want.qpos.numpy(),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.qvel.cpu().numpy(), want.qvel.numpy(),
+                               rtol=0, atol=1e-3)
+    kern = cuda_step.build_cuda_substep(m, m.timestep, 1, device=cuda_device)
+    kq, kv = kern(*(torch.from_numpy(a).to(cuda_device) for a in rows))
+    np.testing.assert_allclose(got.qpos.cpu().numpy(), kq.T.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.qvel.cpu().numpy(), kv.T.cpu().numpy(),
+                               rtol=0, atol=5e-3)
+    assert torch.isfinite(info.contact.force_world).all()
+
+
+@pytest.mark.gpu
+def test_graph_ops_solve_equals_eager(cuda_device):
+    """An ``engine="ops"`` solve of Go1 standing on the jump box (box
+    contact, K=256, H=25, 2 x 10 ms) replayed from a CUDA graph equals the
+    eager solve bit for bit on the same normals, and launches no kernel of
+    the substep family."""
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import MPPIConfig, costs, graph_solve, mppi
+    m = load_go1("jump", device=cuda_device)
+    cost = costs.standing_cost(m, 0.265 + 0.18, m.key_qpos[0, 7:])
+    cfg = MPPIConfig(horizon=25, num_samples=256, n_substeps=2,
+                     rollout_dt=0.01, noise_sigma=0.12, temperature=0.3,
+                     engine="ops")
+    solve = mppi.make_solver(m, cost, cfg, device=cuda_device)
+    st, ms0 = make_state(m, "home"), mppi.init_state(m, cfg)
+    st.qpos[0] += 1.0
+    st.qpos[2] += 0.18
+    normals = _normals(3, cfg, m.nu, cuda_device)
+    gsolve = graph_solve(solve, st, ms0, normals[0])
+    assert dict(gsolve.graph.launches) == {}
+    ms_e = ms_g = ms0
+    for n in normals:
+        ce, ms_e, se = solve(st, ms_e, None, n)
+        cg, ms_g, sg = gsolve(st, ms_g, None, n)
+        assert torch.equal(ce, cg)
+        assert torch.equal(ms_e.nominal, ms_g.nominal)
+        assert torch.equal(se["best_cost"], sg["best_cost"])
+        assert torch.isfinite(ce).all()

@@ -212,5 +212,14 @@ def test_generator_draws_are_reproducible_and_solver_checks_inputs():
     assert torch.equal(a, b) and not torch.equal(a, c)
     with pytest.raises(ValueError, match="normals must have shape"):
         solve(st, ms, normals=torch.zeros(3, 4, m.nu))
-    with pytest.raises(ValueError, match="M8"):
+    # the op-graph engine is named "ops" in the port (the JAX package's
+    # "xla"); the JAX names are not engines here
+    with pytest.raises(ValueError, match="engine must be one of"):
         mppi.make_solver(m, cost, MPPIConfig(engine="xla"), device="cpu")
+    ops = mppi.make_solver(m, cost, MPPIConfig(
+        horizon=cfg.horizon, num_samples=cfg.num_samples,
+        n_substeps=cfg.n_substeps, rollout_dt=cfg.rollout_dt,
+        engine="ops"), device="cpu")
+    d = ops(st, ms, torch.Generator().manual_seed(5))[0]
+    e = ops(st, ms, torch.Generator().manual_seed(5))[0]
+    assert torch.equal(d, e) and torch.isfinite(d).all()

@@ -195,29 +195,31 @@ def test_bridge_mode_matches_jax(jax_side, mini, lag, compensate):
 
 
 def test_terrain_modes():
-    """On a terrain the JAX class's plants are the exact-bilinear step (not
-    ported, ROADMAP M8): compensate=True raises at construction, benchmark
-    mode at start(); an uncompensated bridge solve (one trunk plane, K3's
-    mode) runs, with finite, in-range controls."""
+    """On a terrain the controller's plants are the exact-bilinear step, as
+    in the JAX class: benchmark mode (lag 1) and a compensated controller
+    (lag 2, benchmark and bridge modes) run, with finite, in-range controls
+    and a finite internal plant; an uncompensated bridge solve (one trunk
+    plane, K3's mode) runs too."""
     m = assets.load_opendog("terrain", device="cpu")
     terr = terrain_lib.generate_terrain(m, torch.Generator().manual_seed(0))
     cost = costs.standing_cost(m, 0.0694, m.key_qpos[0, 7:])
     cfg = MPPIConfig(horizon=2, num_samples=4, n_substeps=1, rollout_dt=0.01,
                      noise_sigma=0.05)
-    with pytest.raises(NotImplementedError, match="M8"):
-        RealtimeController(m, cost, cfg, terrain=terr, compensate=True,
-                           device="cpu")
-    rtc = RealtimeController(m, cost, cfg, terrain=terr, lag=1,
-                             generator=torch.Generator().manual_seed(2),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        rtc.start(make_state(m, "home"))
     q = m.numpy("key_qpos")[0]
     rng = m.numpy("actuator_ctrlrange")
-    ctrls = [rtc.bridge_tick(q, np.zeros(m.nv), 0.02 * i) for i in range(3)]
-    ctrls.append(rtc.drain())
-    ctrls = np.array(ctrls)
-    assert np.isfinite(ctrls).all()
-    assert (ctrls >= rng[:, 0] - RANGE_TOL).all()
-    assert (ctrls <= rng[:, 1] + RANGE_TOL).all()
-    assert np.abs(ctrls[1:] - ctrls[0]).max() > 0
+    for lag, comp in ((1, False), (2, True)):
+        rtc = RealtimeController(m, cost, cfg, terrain=terr, lag=lag,
+                                 compensate=comp, plant_substeps=2,
+                                 generator=torch.Generator().manual_seed(2),
+                                 device="cpu")
+        rtc.start(make_state(m, "home"))
+        ctrls = [rtc.tick() for _ in range(4)] + [rtc.drain()]
+        assert torch.isfinite(rtc.plant.qpos).all()
+        ctrls += [rtc.bridge_tick(q, np.zeros(m.nv), 0.02 * i)
+                  for i in range(3)]
+        ctrls.append(rtc.drain())
+        ctrls = np.array(ctrls)
+        assert np.isfinite(ctrls).all()
+        assert (ctrls >= rng[:, 0] - RANGE_TOL).all()
+        assert (ctrls <= rng[:, 1] + RANGE_TOL).all()
+        assert np.abs(ctrls[lag:] - ctrls[0]).max() > 0

@@ -219,12 +219,21 @@ def test_mini_payload_solver_matches_jax_at_0_and_2_kg(monkeypatch):
 
 
 def test_terrain_modes_that_are_not_ported_or_unknown_raise():
+    """The JAX package's default terrain plant ``"exact"`` (the op-graph
+    step with bilinear contact) runs: a tick on the mini ramp from home
+    gives a finite plant state that moved.  Unknown terrain plants, plane
+    modes and payload arguments raise."""
     m = assets.load_mini(device="cpu")
     _, mr, _, t = _mini_ramp()
     cost = costs.standing_cost(m, 0.115, m.key_qpos[0, 7:])
     cfg = MPPIConfig(horizon=2, num_samples=4, n_substeps=1)
-    with pytest.raises(NotImplementedError, match="M8"):
-        make_mpc(mr, cost, cfg, device="cpu", terrain=t)  # "exact" default
+    init, tick, _ = make_mpc(mr, cost, cfg, plant_substeps=2, device="cpu",
+                             terrain=t)  # "exact" default
+    carry = init(torch.Generator().manual_seed(0), make_state(mr, "home"))
+    carry, out = tick(carry)
+    assert torch.isfinite(out["qpos"]).all()
+    assert torch.isfinite(out["qvel"]).all()
+    assert (out["qpos"] - mr.key_qpos[0]).abs().max() > 0
     with pytest.raises(ValueError, match="terrain_plant"):
         make_mpc(mr, cost, cfg, device="cpu", terrain=t,
                  terrain_plant="bilinear")
