@@ -73,6 +73,28 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              to 1e-6, 0.5 kg changes best_cost; graph vs eager as in
              payload; 10 solves each: finite, 25 pergeom_payload launches
              per solve;
+  ilqr     - bench 3 (scripts/bench_suite.py:305-326) at full width: Go1
+             flat, standing_cost(0.265), whole-body iLQR (make_ilqr_tracker:
+             horizon 50, 2 x 10 ms substeps, 3 iterations; 50 tracked ticks
+             of 10 x 2 ms) from the home state settled for 200 substeps;
+             a capture cycle, then ILQR_CYCLES timed cycles with every
+             piece of the solve and the tracked tick replayed from its CUDA
+             graph, then one eager cycle from the first timed cycle's start,
+             which must equal it bit for bit; gates: trunk z in (0.15, 0.4)
+             after each cycle, every state finite, every control in
+             ctrlrange to 1e-6, cost < initial_cost on every solve, no
+             substep kernel launched; prints bench 3's fields, capture
+             seconds, graph memory and nodes per piece and per cycle;
+  ilqr-trot - bench 3b (:328-394) at full width: Go1 trotting under
+             trot_schedule + contact_schedule_cost at 0.5 m/s and 0.265 m
+             (horizon 25, 10 x 2 ms substeps, 6 iterations; 25 tracked
+             ticks; trot_gait_ref warm start; time reset to 0): the first
+             solve cut to its first iteration, graph against eager bit for
+             bit; then a capture cycle and TROT_CYCLES timed graph cycles
+             (the bench: 10); gates as ilqr, and bench 3b's healthy (trunk
+             z above 0.12 at every tick, last cycle's mean in (0.18, 0.4))
+             and locomotes (more than 0.1 m forward); prints bench 3b's
+             fields;
   realtime - bench.py:104-156 on the port: 50 graph ticks with a blocking
              copy of the control (the blocking reference), lag = min(5,
              max(1, ceil(median / 20 ms) + 1)), then RealtimeController in
@@ -138,6 +160,14 @@ ROLLOUT = dict(K=256, dt=0.01, n=2)
 RAGGED = dict(K=257, dt=0.01, n=2)  # one rollout past the MPPI paths' K
 PLANT = dict(K=1, dt=0.002, n=10)
 BATCH = dict(K=4096, dt=0.002, n=10)
+# [ilqr] and [ilqr-trot] (bench 3 and 3b, scripts/bench_suite.py:305-394):
+# full width, cut in cycles only
+ILQR_CYCLES = 2        # timed graph cycles of bench 3 after the capture cycle
+TROT_CYCLES = 4        # timed graph cycles of bench 3b (the bench: 10)
+ILQR_Z_BAND = (0.15, 0.4)  # bench 3's healthy trunk z after a cycle
+TROT_Z_MIN = 0.12          # bench 3b's healthy: min trunk z over all ticks
+TROT_Z_LAST = (0.18, 0.4)  # and the mean over the last cycle
+TROT_MIN_DIST = 0.1        # bench 3b's locomotes [m]
 
 
 def log(msg):
@@ -215,6 +245,19 @@ def event_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_nodes(graph):
+    """Nodes of a captured ``torch.cuda.CUDAGraph`` (kept with
+    ``keep_graph=True``), from libcuda's ``cuGraphGetNodes``."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    rc = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                             ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned {rc}")
+    return n.value
 
 
 def terrain_batch(model, terrain, K, seed=2):
@@ -704,6 +747,245 @@ class Smoke:
                 raise RuntimeError(f"[ops-engine] {side}: non-finite solve "
                                    "output")
         self.log_pair("ops-engine", res, OPS_SOLVES, "solve")
+
+    # -- iLQR ---------------------------------------------------------------
+    def settled_go1(self, time_zero=False):
+        """Go1's home state settled for 200 substeps under the home
+        control (the start of bench 3 and 3b)."""
+        from opendog_tpu_torch.physics import dynamics, make_state
+        m = self.go1
+        s, _ = dynamics.step(m, make_state(m, "home"), m.key_ctrl[0], None,
+                             n_substeps=200)
+        if time_zero:
+            s.time = self.torch.zeros((), device=self.dev)
+        return s
+
+    def ilqr_cycles(self, label, cycle, s0, U0, n_cycles):
+        """The capture cycle from (s0, U0), then ``n_cycles`` timed cycles
+        of the graphed tracker ``cycle``: every plant state finite, every
+        control in ctrlrange to RANGE_TOL and ``cost < initial_cost`` on
+        every solve, no substep kernel launched.  Prints the capture
+        seconds, the graphs' memory, each piece's nodes and the nodes
+        replayed per cycle."""
+        torch = self.torch
+        m = self.go1
+        rng = m.actuator_ctrlrange
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        out = dict(cycles=[])
+
+        def one(plant, U):
+            t0 = time.perf_counter()
+            plant, U, traj = cycle(plant, U)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = cycle.stats
+            q, c = traj["qpos"], traj["ctrl"]
+            finite = bool(torch.isfinite(q).all() and torch.isfinite(c).all()
+                          and torch.isfinite(plant.qvel).all())
+            in_range = bool(((c >= rng[:, 0] - RANGE_TOL)
+                             & (c <= rng[:, 1] + RANGE_TOL)).all())
+            cost, c0 = float(st["cost"]), float(st["initial_cost"])
+            log(f"[{label}] cycle in {wall:.3f} s: cost {cost:.4f} from "
+                f"{c0:.4f}, iterations' costs "
+                f"{[round(float(v), 4) for v in st['cost_trace']]}, step "
+                f"sizes taken {st['pick_trace'].tolist()} | trunk z min "
+                f"{float(q[:, 2].min()):.4f} max {float(q[:, 2].max()):.4f} "
+                f"last {float(plant.qpos[2]):.4f}, x {float(plant.qpos[0]):.4f}"
+                f" | finite {finite}, controls in range {in_range}")
+            if not finite:
+                raise RuntimeError(f"[{label}] non-finite plant state")
+            if not in_range:
+                raise RuntimeError(f"[{label}] a control left ctrlrange")
+            if not cost < c0:
+                raise RuntimeError(f"[{label}] the solve did not lower the "
+                                   f"cost: {cost} from {c0}")
+            return wall, plant, U, dict(qpos=q.clone(), ctrl=c.clone(),
+                                        cost=traj["cost"].clone())
+
+        def run():
+            wall, plant, U, traj = one(s0, U0)
+            out["capture_s"], out["first"] = wall, (plant, U, traj)
+            calls = {}
+            for _ in range(n_cycles):
+                before = {**cycle.pieces.calls, **cycle.solve.pieces.calls}
+                wall, plant, U, traj = one(plant, U)
+                after = {**cycle.pieces.calls, **cycle.solve.pieces.calls}
+                calls = {f: after[f] - before.get(f, 0) for f in after}
+                out["cycles"].append((wall, plant, U, traj))
+            return calls
+
+        calls = self.counted(label, run, {})
+        mem = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+        graphs = {**cycle.pieces.captured, **cycle.solve.pieces.captured}
+        nodes = {f.__name__: (graph_nodes(g.graph), calls[f])
+                 for f, g in graphs.items()}
+        out["nodes_per_cycle"] = sum(n * k for n, k in nodes.values())
+        out["nodes"] = nodes
+        out["memory_mib"] = mem
+        log(f"[{label}] capture cycle (one eager warm-up, one capture and "
+            f"one replay of each piece) {out['capture_s']:.3f} s; peak "
+            f"memory above the start {mem:.1f} MiB; graph nodes per piece "
+            f"(nodes, replays per cycle): {nodes}; "
+            f"{out['nodes_per_cycle']} nodes replayed per cycle")
+        return out
+
+    def ilqr(self):
+        """bench 3 (scripts/bench_suite.py:305-326): Go1 standing under
+        whole-body iLQR, 1 Hz replan + 50 Hz tracking."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.solvers import (ILQRConfig, costs,
+                                               make_ilqr_tracker)
+        m = self.go1
+        cost = costs.standing_cost(m, 0.265, m.key_qpos[0, 7:])
+        icfg = ILQRConfig(horizon=50, n_substeps=2, rollout_dt=0.01,
+                          iterations=3)
+        kw = dict(track_ticks=50, plant_substeps=10, device=dev)
+        s0 = self.settled_go1()
+        U0 = m.key_ctrl[0][None].repeat(icfg.horizon, 1)
+        log(f"[ilqr] bench 3 at full width: Go1 flat, standing_cost(0.265),"
+            f" {icfg}, track_ticks 50, plant_substeps 10; cut: "
+            f"{ILQR_CYCLES} timed graph cycles after the capture cycle and "
+            f"one eager cycle (the bench: one timed cycle)")
+        g = self.ilqr_cycles("ilqr", make_ilqr_tracker(m, cost, icfg,
+                                                       graphs=True, **kw),
+                             s0, U0, ILQR_CYCLES)
+        for wall, plant, _, _ in g["cycles"]:
+            z = float(plant.qpos[2])
+            if not ILQR_Z_BAND[0] < z < ILQR_Z_BAND[1]:
+                raise RuntimeError(f"[ilqr] trunk z {z} left {ILQR_Z_BAND}")
+        # the eager cycle from the first timed cycle's start
+        plant1, U1, _ = g["first"]
+        ecycle = make_ilqr_tracker(m, cost, icfg, graphs=False, **kw)
+        e = self.counted("ilqr eager", lambda: self._eager_cycle(
+            "ilqr", ecycle, plant1, U1), {})
+        wall_g, plant_g, U_g, traj_g = g["cycles"][0]
+        wall_e, plant_e, U_e, traj_e = e
+        self.same_bits("ilqr", "the eager cycle and the first timed graph "
+                       "cycle", dict(traj_g, plant_qpos=plant_g.qpos,
+                                     plant_qvel=plant_g.qvel, U_next=U_g),
+                       dict(traj_e, plant_qpos=plant_e.qpos,
+                            plant_qvel=plant_e.qvel, U_next=U_e))
+        dt = float(np.mean([c[0] for c in g["cycles"]]))
+        z = float(g["cycles"][-1][1].qpos[2])
+        fields = dict(cycle_seconds=dt, realtime_factor=1.0 / dt, trunk_z=z,
+                      healthy=bool(ILQR_Z_BAND[0] < z < ILQR_Z_BAND[1]),
+                      eager_cycle_seconds=wall_e,
+                      capture_cycle_seconds=g["capture_s"],
+                      graph_memory_mib=g["memory_mib"],
+                      graph_nodes_per_cycle=g["nodes_per_cycle"],
+                      timed_cycles=ILQR_CYCLES)
+        log(f"[ilqr] bench 3 fields: {json.dumps(fields)}")
+        self.pairs["ilqr"] = dict(eager_ms=1e3 * wall_e, graph_ms=1e3 * dt,
+                                  n=1, unit="cycle")
+        return fields
+
+    def _eager_cycle(self, label, cycle, plant, U):
+        t0 = time.perf_counter()
+        plant, U, traj = cycle(plant, U)
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"[{label}] eager cycle in {wall:.3f} s: cost "
+            f"{float(traj['cost']):.4f}")
+        return wall, plant, U, traj
+
+    def same_bits(self, label, what, a, b):
+        """Every tensor of ``a`` equals its namesake in ``b`` bit for
+        bit."""
+        torch = self.torch
+        differ = {k: float((a[k] - b[k]).abs().nan_to_num(
+                      nan=float("inf")).max())
+                  for k in a if not torch.equal(a[k], b[k])}
+        verdict = f"DIFFER, max abs {differ}" if differ else "equal bit for bit"
+        log(f"[{label}] graph vs eager, {what}: {', '.join(sorted(a))} "
+            f"{verdict}")
+        if differ:
+            raise RuntimeError(f"[{label}] the graph differs from the eager "
+                               f"path: {differ}")
+
+    def ilqr_trot(self):
+        """bench 3b (scripts/bench_suite.py:328-394): Go1 trotting under an
+        explicit contact schedule, 0.5 s replan + 50 Hz tracking, warm
+        started from the gait reference."""
+        torch, dev = self.torch, self.dev
+        from dataclasses import replace
+        from opendog_tpu_torch.solvers import (ILQRConfig, costs, make_ilqr,
+                                               make_ilqr_tracker)
+        m = self.go1
+        home_j = m.key_qpos[0, 7:]
+        pc = costs.TrotCostParams(desired_vel_xy=(0.5, 0.0),
+                                  target_height=0.265)
+        sched = costs.trot_schedule(pc, legs="go1")
+        cost = costs.contact_schedule_cost(m, sched, pc, home_j, legs="go1")
+        icfg = ILQRConfig(horizon=25, n_substeps=10, rollout_dt=0.002,
+                          iterations=6)
+        u_ref = costs.trot_gait_ref(m, pc, home_j, legs="go1")
+        s0 = self.settled_go1(time_zero=True)
+        U0 = m.key_ctrl[0][None].repeat(icfg.horizon, 1)
+        log(f"[ilqr-trot] bench 3b at full width: Go1 flat, trot_schedule + "
+            f"contact_schedule_cost at 0.5 m/s and 0.265 m, {icfg}, "
+            f"track_ticks 25, plant_substeps 10, u_ref_fn trot_gait_ref; "
+            f"cut: {TROT_CYCLES} timed graph cycles after the capture cycle "
+            f"(the bench: 10), graph vs eager on the first solve's first "
+            f"iteration only")
+        # graph vs eager: the first solve, cut to its first iteration
+        one = replace(icfg, iterations=1)
+        sides = {}
+        for side, graphs in (("graph", True), ("eager", False)):
+            solve = make_ilqr(m, cost, one, device=dev, graphs=graphs)
+
+            def run():
+                t0 = time.perf_counter()
+                U, X, st = solve(s0, U0)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, dict(st, U=U, X=X)
+
+            sides[side] = self.counted(f"ilqr-trot first iteration {side}",
+                                       run, {})
+            log(f"[ilqr-trot] one-iteration solve, {side}: "
+                f"{sides[side][0]:.3f} s (graph: with its captures)")
+        self.same_bits("ilqr-trot", "the first solve's first iteration",
+                       sides["graph"][1], sides["eager"][1])
+        cycle = make_ilqr_tracker(m, cost, icfg, track_ticks=25,
+                                  plant_substeps=10, u_ref_fn=u_ref,
+                                  device=dev, graphs=True)
+        g = self.ilqr_cycles("ilqr-trot", cycle, s0, U0, TROT_CYCLES)
+        x0 = float(g["first"][0].qpos[0])
+        walls = [c[0] for c in g["cycles"]]
+        dt = float(np.mean(walls))
+        zs = torch.cat([c[3]["qpos"][:, 2] for c in g["cycles"]])
+        z_last = g["cycles"][-1][3]["qpos"][:, 2]
+        dist = float(g["cycles"][-1][1].qpos[0]) - x0
+        fields = dict(cycle_seconds=dt, realtime_factor=0.5 / dt,
+                      distance_m=dist,
+                      mean_speed_mps=dist / (0.5 * TROT_CYCLES),
+                      locomotes=bool(dist > TROT_MIN_DIST),
+                      trunk_z_min=float(zs.min()),
+                      trunk_z_last_cycle_mean=float(z_last.mean()),
+                      trunk_z_final=float(g["cycles"][-1][1].qpos[2]),
+                      capture_cycle_seconds=g["capture_s"],
+                      graph_memory_mib=g["memory_mib"],
+                      graph_nodes_per_cycle=g["nodes_per_cycle"],
+                      eager_first_iteration_seconds=sides["eager"][0],
+                      timed_cycles=TROT_CYCLES)
+        fields["healthy"] = bool(
+            fields["trunk_z_min"] > TROT_Z_MIN
+            and TROT_Z_LAST[0] < fields["trunk_z_last_cycle_mean"]
+            < TROT_Z_LAST[1])
+        log(f"[ilqr-trot] bench 3b fields: {json.dumps(fields)}")
+        if not fields["healthy"]:
+            raise RuntimeError(f"[ilqr-trot] unhealthy: trunk z min "
+                               f"{fields['trunk_z_min']} (> {TROT_Z_MIN}), "
+                               f"last-cycle mean "
+                               f"{fields['trunk_z_last_cycle_mean']} (in "
+                               f"{TROT_Z_LAST})")
+        if not fields["locomotes"]:
+            raise RuntimeError(f"[ilqr-trot] {dist} m is not more than "
+                               f"{TROT_MIN_DIST} m")
+        self.pairs["ilqr-trot"] = dict(graph_ms=1e3 * dt, n=TROT_CYCLES,
+                                       unit="cycle")
+        return fields
 
     def solve_pair(self, label, pay, st, ms0, payload, cfg, n_solves, want):
         """A payload solver and its CUDA graph: bit for bit on injected
@@ -1262,6 +1544,8 @@ def main():
     smoke.payload_solves()
     smoke.batch_steps()
     smoke.pergeom_payload_solves()
+    ilqr = smoke.ilqr()
+    ilqr_trot = smoke.ilqr_trot()
     realtime = smoke.realtime(flat)
     bridge = smoke.bridge(flat, realtime["host_loop_control_delay_ticks"])
     for label, path in (("flat", flat), ("terrain", terr),
@@ -1276,6 +1560,8 @@ def main():
         + json.dumps(smoke.pairs))
     log("[summary] realtime: " + json.dumps(realtime))
     log("[summary] bridge: " + json.dumps(bridge))
+    log("[summary] ilqr (bench 3): " + json.dumps(ilqr))
+    log("[summary] ilqr-trot (bench 3b): " + json.dumps(ilqr_trot))
     log("[summary] terrain final_dev_vs_exact_plant_m: "
         + json.dumps(deviation))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")

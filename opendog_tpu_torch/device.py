@@ -24,3 +24,12 @@ def use_full_fp32() -> None:
     counterpart of the JAX package's ``precision="highest"``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def use_cusolver() -> None:
+    """Send the card's batched factorizations and solves to cuSOLVER and
+    cuBLAS.  By default PyTorch sends a batched ``cholesky_solve``, and
+    ``solve_ex`` / ``inv_ex`` over more than about a dozen matrices, to
+    MAGMA, which a CUDA graph capture refuses.  A process-wide setting, as
+    the TF32 flags of :func:`use_full_fp32` are."""
+    torch.backends.cuda.preferred_linalg_library("cusolver")

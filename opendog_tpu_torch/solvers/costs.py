@@ -1,6 +1,9 @@
 """Task cost functions for the trajectory-optimization solvers.
 
-Port of ``opendog_tpu/solvers/costs.py:21-181``.  A cost is a per-step
+Port of ``opendog_tpu/solvers/costs.py:21-181`` and, for the whole-body
+iLQR, of its contact schedules and gait reference (``:345-570``:
+``ContactSchedule``, ``trot_schedule``, ``landing_schedule``,
+``contact_schedule_cost``, ``trot_gait_ref``).  A cost is a per-step
 function ``cost(state, ctrl, prev_ctrl) -> cost`` that works batch-first:
 ``state.qpos`` (K, nq), ``state.qvel`` (K, nv), ``state.time`` (K,), ``ctrl``
 and ``prev_ctrl`` (K, nu) give a (K,) cost; unbatched inputs give a scalar.
@@ -100,6 +103,25 @@ class TrotCostParams:
     lift_phase: float = 0.0      # knee-lift oscillator phase lead [rad]
 
 
+def _leg_layout(legs: str, params: TrotCostParams):
+    """(thigh joints, knee joints, diagonal signs, thigh direction) of a leg
+    layout, the joints as slices of ``qpos[7:]``: 'go1' = (hip, thigh,
+    knee) x [FR, FL, RR, RL]; 'opendog' = (thigh, knee) x [FL, FR, BL, BR].
+    Slices index without a host copy, so the costs stay capturable."""
+    if legs == "go1":
+        return (slice(1, None, 3), slice(2, None, 3), [1.0, -1.0, -1.0, 1.0],
+                -params.thigh_phase)
+    if legs == "opendog":
+        return (slice(0, None, 2), slice(1, None, 2), [-1.0, 1.0, 1.0, -1.0],
+                params.thigh_phase)
+    raise ValueError(f"unknown leg layout {legs!r}")
+
+
+def _dofs(joints: slice) -> slice:
+    """The qvel slice of a joint slice of ``qpos[7:]`` (free joint first)."""
+    return slice(joints.start + 6, None, joints.step)
+
+
 def trot_cost(model, params: TrotCostParams, home_joint_qpos,
               legs: str = "go1"):
     """Gait-shaped locomotion cost.
@@ -109,19 +131,8 @@ def trot_cost(model, params: TrotCostParams, home_joint_qpos,
     pairs (FR+RL / FL+RR, or FR+BL / FL+BR) alternate by phase."""
     home_j = _const(model, home_joint_qpos)
     desired = _const(model, params.desired_vel_xy)
-    if legs == "go1":
-        thigh_idx, knee_idx = slice(1, None, 3), slice(2, None, 3)
-        # legs order FR, FL, RR, RL -> diagonal pair A = FR, RL
-        diag_sign = [1.0, -1.0, -1.0, 1.0]
-        knee_dir = -1.0  # knees flex negative
-        thigh_dir = -params.thigh_phase  # go1 thigh angle decreases forward
-    elif legs == "opendog":  # FL, FR, BL, BR thigh/knee pairs
-        thigh_idx, knee_idx = slice(0, None, 2), slice(1, None, 2)
-        diag_sign = [-1.0, 1.0, 1.0, -1.0]  # pair A = FR, BL
-        knee_dir = -1.0
-        thigh_dir = params.thigh_phase
-    else:
-        raise ValueError(f"unknown leg layout {legs!r}")
+    thigh_idx, knee_idx, diag_sign, thigh_dir = _leg_layout(legs, params)
+    knee_dir = -1.0  # knees flex negative
     sign = _const(model, diag_sign)
     home_thigh, home_knee = home_j[thigh_idx], home_j[knee_idx]
 
@@ -154,3 +165,185 @@ def trot_cost(model, params: TrotCostParams, home_joint_qpos,
                 + c_rate)
 
     return step_cost
+
+
+# ---------------------------------------------------------------------------
+# Contact schedules (port of opendog_tpu/solvers/costs.py:345-570)
+# ---------------------------------------------------------------------------
+
+
+def _rows(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``table[i]`` for an index tensor of any shape, 0-d included: a 0-d
+    index would otherwise be read to the host as a Python int, which
+    neither a CUDA graph capture nor ``torch.func.vmap`` allows."""
+    return torch.index_select(table, 0, i.reshape(-1)).reshape(
+        i.shape + table.shape[1:])
+
+
+@dataclass(frozen=True)
+class ContactSchedule:
+    """Explicit per-leg stance/swing plan, the contact-sequencing input of
+    the whole-body iLQR (BASELINE config 3): a table of time slots that
+    costs built from it index by ``state.time``, which iLQR threads through
+    the horizon, so one solve optimises through the stance/swing sequence.
+
+    ``stance``: (n_slots, nlegs) rows of 0/1, 1 = the leg is planned in
+    stance during that slot, legs in the model's qpos order (go1: FR, FL,
+    RR, RL; opendog: FL, FR, BL, BR).  ``thigh_offset``: optional (n_slots,
+    nlegs) thigh targets [rad, "forward" units] at the start of each slot,
+    interpolated linearly to the next slot's.  ``cyclic``: wrap (gaits) or
+    clamp at the last slot (terminal sequences such as a landing)."""
+
+    stance: tuple
+    slot_dt: float
+    cyclic: bool = True
+    thigh_offset: tuple = None
+
+
+def trot_schedule(params: TrotCostParams, legs: str = "go1",
+                  duty: float = 0.5) -> ContactSchedule:
+    """Alternating-diagonal trot: pair A (FR+RL / FR+BL) in stance while
+    pair B swings, then swap, each leg's thigh on a triangle wave of
+    amplitude ``thigh_amp`` (forward in swing, back in stance).  ``duty``
+    is the stance fraction per leg: 0.5, the two-slot trot, or 0.625, an
+    eight-slot walk-trot (swing 3 slots, stance 5) with quadruple-support
+    overlap."""
+    if legs == "go1":
+        diag_sign = np.array([1.0, -1.0, -1.0, 1.0])  # FR, FL, RR, RL
+    else:
+        diag_sign = np.array([-1.0, 1.0, 1.0, -1.0])  # FL, FR, BL, BR
+    amp = params.thigh_amp
+    try:
+        n_slots, n_swing = {0.5: (2, 1), 0.625: (8, 3)}[duty]
+    except KeyError:
+        raise ValueError(f"duty must be 0.5 or 0.625, got {duty}")
+    # per-leg triangle wave (slot-start waypoints): -amp -> +amp over the
+    # swing slots, back over the stance slots; pair B half a period later
+    tri = np.array([
+        (-amp + 2.0 * amp * k / n_swing) if k <= n_swing
+        else (amp - 2.0 * amp * (k - n_swing) / (n_slots - n_swing))
+        for k in range(n_slots)], np.float32)
+    phase = np.where(diag_sign > 0, 0, n_slots // 2)
+    off = np.stack([tri[(k - phase) % n_slots] for k in range(n_slots)])
+    stance = np.stack([((k - phase) % n_slots >= n_swing)
+                       .astype(np.float32) for k in range(n_slots)])
+    return ContactSchedule(
+        stance=tuple(map(tuple, stance)),
+        slot_dt=params.period_s / n_slots,
+        cyclic=True,
+        thigh_offset=tuple(map(tuple, off.astype(np.float32))),
+    )
+
+
+def landing_schedule(slot_dt: float = 0.25) -> ContactSchedule:
+    """Front-then-back landing of the Go1 ``descent`` drop (legs FR, FL,
+    RR, RL): the front legs are planned in stance from the first slot and
+    reach for the ground while the rears stay tucked one slot longer, then
+    all four stand."""
+    stance = ((1.0, 1.0, 0.0, 0.0),   # flight: fronts reach, rears tuck
+              (1.0, 1.0, 0.0, 0.0),   # front touch-down
+              (1.0, 1.0, 1.0, 1.0))   # all-stance
+    return ContactSchedule(stance=stance, slot_dt=slot_dt, cyclic=False)
+
+
+def contact_schedule_cost(model, sched: ContactSchedule,
+                          params: TrotCostParams, home_joint_qpos,
+                          legs: str = "go1", w_stance_vel: float = 0.05):
+    """Cost shaped by an explicit :class:`ContactSchedule`.
+
+    Per leg and time, references from the schedule (linearly interpolated
+    between slots): swing legs flex the knee by ``knee_lift`` and follow
+    the slot thigh offsets; stance legs extend to home and are damped
+    (``w_stance_vel`` on their joint velocities, a smooth stand-in for
+    "a stance foot does not move").  The trunk terms (velocity, height,
+    upright, heading) take their weights from ``TrotCostParams``."""
+    home_j = _const(model, home_joint_qpos)
+    desired = _const(model, params.desired_vel_xy)
+    thigh_idx, knee_idx, _, thigh_dir = _leg_layout(legs, params)
+    knee_dir = -1.0
+    stance_tab = _const(model, sched.stance)
+    n_slots = stance_tab.shape[0]
+    off_tab = (_const(model, sched.thigh_offset)
+               if sched.thigh_offset is not None
+               else torch.zeros_like(stance_tab))
+    thigh_dof, knee_dof = _dofs(thigh_idx), _dofs(knee_idx)
+    home_thigh, home_knee = home_j[thigh_idx], home_j[knee_idx]
+
+    def _interp(table, pos):
+        """Rows of ``table`` linearly interpolated at the fractional slot
+        position ``pos`` (row k anchored at pos == k): cyclic wrap, or a
+        clamp at both ends."""
+        if sched.cyclic:
+            pos = torch.remainder(pos, n_slots)
+            fl = torch.floor(pos)
+            i0 = fl.long() % n_slots
+            i1 = (i0 + 1) % n_slots
+        else:
+            pos = torch.clamp(pos, 0.0, float(n_slots - 1))
+            fl = torch.floor(pos)
+            i0 = torch.clamp(fl.long(), 0, n_slots - 1)
+            i1 = torch.clamp(i0 + 1, max=n_slots - 1)
+        frac = (pos - fl)[..., None]
+        return (1 - frac) * _rows(table, i0) + frac * _rows(table, i1)
+
+    def step_cost(state: State, ctrl, prev_ctrl):
+        qpos, qvel = state.qpos, state.qvel
+        roll, pitch, yaw = spatial.euler_from_quat(qpos[..., 3:7])
+        pos = state.time / sched.slot_dt
+        # stance flags anchor at slot centres: crisp mid-slot, blended
+        # across slot boundaries; thigh offsets are slot-start waypoints
+        stance_t = _interp(stance_tab, pos - 0.5)
+        off_t = _interp(off_tab, pos)
+        swing_t = 1.0 - stance_t
+        joints = qpos[..., 7:]
+        thigh_ref = home_thigh + thigh_dir * off_t
+        knee_ref = home_knee + knee_dir * params.knee_lift * swing_t
+        c_gait = params.w_gait * (
+            _sq_sum(joints[..., thigh_idx] - thigh_ref)
+            + _sq_sum(joints[..., knee_idx] - knee_ref)
+        )
+        c_stance = w_stance_vel * torch.sum(
+            stance_t * (torch.square(qvel[..., thigh_dof])
+                        + torch.square(qvel[..., knee_dof])), dim=-1)
+        c_vel = params.w_vel * _sq_sum(qvel[..., :2] - desired)
+        c_h = params.w_height * torch.square(qpos[..., 2] - params.target_height)
+        c_up = params.w_upright * (torch.square(roll) + torch.square(pitch))
+        c_lat = params.w_lateral * torch.square(qvel[..., 1])
+        c_yawr = params.w_yaw_rate * torch.square(qvel[..., 5])
+        dyaw = torch.atan2(torch.sin(yaw - params.desired_yaw),
+                           torch.cos(yaw - params.desired_yaw))
+        c_head = params.w_heading * torch.square(dyaw)
+        c_rate = params.w_ctrl_rate * _sq_sum(ctrl - prev_ctrl)
+        return (c_gait + c_stance + c_vel + c_h + c_up + c_lat + c_yawr
+                + c_head + c_rate)
+
+    return step_cost
+
+
+def trot_gait_ref(model, params: TrotCostParams, home_joint_qpos,
+                  legs: str = "go1"):
+    """Phase-referenced trot joint targets in actuator order: the
+    feed-forward gait that ``trot_cost`` pulls toward (its thigh and knee
+    reference formulas), the warm start of the iLQR tracker.  Batch-first
+    in time: ``u_ref(t)`` maps times (...) to controls (..., nu)."""
+    home_j = _const(model, home_joint_qpos)
+    thigh_idx, knee_idx, diag_sign, thigh_dir = _leg_layout(legs, params)
+    knee_dir = -1.0
+    qadr = (model.actuator_qposadr - 7).long()  # actuator -> joint index
+    sign = _const(model, diag_sign)
+    home_thigh, home_knee = home_j[thigh_idx], home_j[knee_idx]
+
+    def u_ref(t):
+        phase = (2.0 * math.pi * t / params.period_s)[..., None]
+        s = torch.sin(phase)
+        sl = torch.sin(phase + params.lift_phase)
+        swing = torch.where(sign > 0, torch.clamp(sl, min=0.0),
+                            torch.clamp(-sl, min=0.0))
+        joints_ref = home_j.expand(t.shape + home_j.shape).clone()
+        joints_ref[..., thigh_idx] = (
+            home_thigh + thigh_dir * params.thigh_amp * sign * s)
+        joints_ref[..., knee_idx] = (
+            home_knee + knee_dir * params.knee_lift * swing)
+        return joints_ref[..., qadr]
+
+    return u_ref

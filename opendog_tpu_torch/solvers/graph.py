@@ -58,7 +58,9 @@ class GraphedTick:
             with torch.cuda.stream(side):
                 fn(*self.inputs)
             current.wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
+            # keep_graph: the captured graph stays readable (its node
+            # count, raw_cuda_graph) after instantiation
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = collections.Counter(cuda_step.LAUNCHES)
             try:
                 with torch.cuda.graph(self.graph):

@@ -26,7 +26,7 @@ import torch
 from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
 from ..physics import State, Terrain, dynamics, make_state
-from . import mppi
+from . import ilqr as ilqr_mod, mppi
 from .graph import GraphedTick
 
 TERRAIN_PLANTS = ("exact", "kernel")
@@ -439,3 +439,90 @@ class RealtimeController:
         if self.compensate:
             self._queue_dev = stats["queue"]
         return self._advance(ctrl)
+
+
+def make_ilqr_tracker(
+    model,
+    step_cost: Callable,
+    ilqr_config=None,
+    track_ticks: int = 50,
+    plant_substeps: int = 10,
+    terrain: Optional[Terrain] = None,
+    u_ref_fn: Optional[Callable] = None,
+    device=None,
+    graphs: Optional[bool] = None,
+):
+    """BASELINE config 3: whole-body iLQR with a slow replan and a fast
+    tracking loop (``opendog_tpu/solvers/mpc.py:330-420``).  Returns
+    ``cycle(plant, U_init) -> (plant', U_next, traj)``: one replan of the
+    full horizon, then ``track_ticks`` plant ticks of the time-varying LQR
+    policy u_t = clip(U*_t + K_t (x - X*_t)) from the solve's final gains,
+    each ``plant_substeps`` substeps of the op-graph step at the model's
+    timestep (1 Hz replan / 50 Hz tracking at the defaults).  ``traj``
+    holds the tracked ``qpos`` and ``ctrl`` per tick and the solve's
+    ``cost``.
+
+    The next plan starts from ``u_ref_fn`` (e.g. ``costs.trot_gait_ref``,
+    batch-first in time) at the next cycle's stage times, or else from the
+    receding plan padded with its last control.  Plan at the plant's
+    integration rate and warm-start from the gait reference: the JAX
+    package's docstring gives the measurements behind both.
+
+    ``graphs`` (default: on CUDA) replays the solve's pieces and the
+    tracked plant tick from CUDA graphs captured at their first call; the
+    cycle equals the eager cycle bit for bit.  Only on CUDA.  After a call,
+    ``cycle.stats`` holds its solve's ``stats`` (``make_ilqr``)."""
+    if ilqr_config is None:
+        ilqr_config = ilqr_mod.ILQRConfig(
+            horizon=50, n_substeps=10, rollout_dt=0.002, iterations=5)
+    if not ilqr_config.horizon >= track_ticks:
+        raise ValueError(f"the horizon ({ilqr_config.horizon}) must cover "
+                         f"the tracked ticks ({track_ticks})")
+    device = resolve_device(device)
+    if graphs is None:
+        graphs = device.type == "cuda"
+    model = model.to(device)
+    if terrain is not None:
+        terrain = terrain.to(device)
+    solve = ilqr_mod.make_ilqr(model, step_cost, ilqr_config,
+                               terrain=terrain, device=device, graphs=graphs)
+    run = ilqr_mod._Pieces(device, graphs)
+    lo = model.actuator_ctrlrange[:, 0]
+    hi = model.actuator_ctrlrange[:, 1]
+    stage_dt = ilqr_config.n_substeps * ilqr_config.rollout_dt
+    steps = stage_dt * torch.arange(ilqr_config.horizon, dtype=torch.float32,
+                                    device=device)
+
+    def track(qpos, qvel, time, U_t, K_t, X_t):
+        """One tracked plant tick."""
+        x = torch.cat([qpos, qvel])
+        u = torch.clamp(U_t + K_t @ (x - X_t), lo, hi)
+        st2, _ = dynamics.step(model, State(qpos=qpos, qvel=qvel, time=time),
+                               u, terrain, n_substeps=plant_substeps)
+        return st2.qpos, st2.qvel, st2.time, u
+
+    def cycle(plant: State, U_init: torch.Tensor):
+        """One replan + ``track_ticks`` tracked plant ticks."""
+        U, X, stats = solve(plant, U_init)
+        cycle.stats = stats
+        K_fb = stats["K_fb"]
+        qpos, qvel, t = (plant.qpos.to(device), plant.qvel.to(device),
+                         plant.time.to(device))
+        Q = qpos.new_empty((track_ticks,) + qpos.shape)
+        C = U.new_empty((track_ticks, model.nu))
+        for i in range(track_ticks):
+            qpos, qvel, t, C[i] = run(track, qpos, qvel, t, U[i], K_fb[i],
+                                      X[i])
+            Q[i] = qpos
+        plant2 = State(qpos=qpos.clone(), qvel=qvel.clone(), time=t.clone())
+        if u_ref_fn is not None:
+            # canonical warm start: the gait reference at the next cycle's
+            # absolute stage times
+            U_next = torch.clamp(u_ref_fn(plant2.time + steps), lo, hi)
+        else:
+            U_next = torch.cat([U[track_ticks:],
+                                U[-1:].repeat(track_ticks, 1)], dim=0)
+        return plant2, U_next, dict(qpos=Q, ctrl=C, cost=stats["cost"])
+
+    cycle.solve, cycle.pieces, cycle.stats = solve, run, None
+    return cycle

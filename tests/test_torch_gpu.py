@@ -454,3 +454,112 @@ def test_graph_ops_solve_equals_eager(cuda_device):
         assert torch.equal(ms_e.nominal, ms_g.nominal)
         assert torch.equal(se["best_cost"], sg["best_cost"])
         assert torch.isfinite(ce).all()
+
+
+# -- whole-body iLQR on the card ----------------------------------------------
+
+def _ilqr_trot_cycle(device, riccati, graphs):
+    """Bench 3b in miniature: Go1 trotting under the contact schedule, 4
+    stages of 2 x 2 ms substeps, 2 iterations, 3 tracked ticks of 2
+    substeps, warm started from the gait reference."""
+    from opendog_tpu_torch.physics import dynamics, make_state
+    from opendog_tpu_torch.solvers import (ILQRConfig, costs,
+                                           make_ilqr_tracker)
+    m = load_go1("flat", device=device)
+    home = m.key_qpos[0, 7:]
+    pc = costs.TrotCostParams()
+    cost = costs.contact_schedule_cost(m, costs.trot_schedule(pc), pc, home)
+    cfg = ILQRConfig(horizon=4, n_substeps=2, rollout_dt=0.002,
+                     iterations=2, riccati=riccati)
+    cycle = make_ilqr_tracker(m, cost, cfg, track_ticks=3, plant_substeps=2,
+                              u_ref_fn=costs.trot_gait_ref(m, pc, home),
+                              device=device, graphs=graphs)
+    st, _ = dynamics.step(m, make_state(m, "home"), m.key_ctrl[0],
+                          n_substeps=50)
+    return cycle, st, m.key_ctrl[0][None].repeat(cfg.horizon, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("riccati", ["scan", "associative"])
+def test_graph_ilqr_cycle_equals_eager(cuda_device, riccati):
+    """Two replan + track cycles with every piece replayed from its CUDA
+    graph equal two eager cycles bit for bit (the same kernels on the same
+    inputs), and launch no kernel of the substep family."""
+    runs = []
+    for graphs in (False, True):
+        cycle, st, U = _ilqr_trot_cycle(cuda_device, riccati, graphs)
+        cuda_step.LAUNCHES.clear()
+        outs = []
+        for _ in range(2):
+            st, U, traj = cycle(st, U)
+            outs.append(dict(qpos=st.qpos.clone(), qvel=st.qvel.clone(),
+                             U=U.clone(), **{k: v.clone() for k, v in
+                                             cycle.stats.items()},
+                             **{f"traj_{k}": v.clone()
+                                for k, v in traj.items()}))
+        assert dict(cuda_step.LAUNCHES) == {}
+        runs.append(outs)
+    for eager, graph in zip(*runs):
+        for k in eager:
+            assert torch.equal(eager[k], graph[k]), k
+        assert torch.isfinite(eager["qpos"]).all()
+
+
+@pytest.mark.gpu
+def test_ilqr_solve_on_card_matches_cpu(cuda_device):
+    """One solve (OpenDOG standing, 6 stages of 2 x 5 ms substeps, 2
+    iterations: the CPU tests' solve) on the card against the same solve on
+    the CPU: the same step size at each iteration, U 1e-4 and X 1e-3
+    absolute, the costs 1e-4 relative, K_fb 1e-3 of its largest entry (the
+    card's reductions round in other orders)."""
+    from opendog_tpu_torch.physics import State, dynamics, make_state
+    from opendog_tpu_torch.solvers import ILQRConfig, costs, make_ilqr
+    cfg = ILQRConfig(horizon=6, n_substeps=2, rollout_dt=0.005, iterations=2)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = load_opendog("flat", device=dev)
+        st, _ = dynamics.step(m.to("cpu"), make_state(m.to("cpu"), "home"),
+                              m.key_ctrl[0].cpu(), n_substeps=200)
+        qvel = st.qvel.clone()
+        qvel[0] = 0.2
+        solve = make_ilqr(m, costs.standing_cost(m, 0.0694,
+                                                 m.key_qpos[0, 7:]),
+                          cfg, device=dev, graphs=False)
+        U0 = m.key_ctrl[0][None].repeat(cfg.horizon, 1) * 0.99
+        U, X, stats = solve(State(qpos=st.qpos, qvel=qvel,
+                                  time=torch.tensor(0.3)), U0)
+        out[str(dev)] = dict(U=U.cpu(), X=X.cpu(),
+                             **{k: v.cpu() for k, v in stats.items()})
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert card["pick_trace"].tolist() == cpu["pick_trace"].tolist()
+    np.testing.assert_allclose(card["U"], cpu["U"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card["X"], cpu["X"], rtol=0, atol=1e-3)
+    for k in ("cost", "initial_cost", "cost_trace"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4)
+    scale = float(cpu["K_fb"].abs().max())
+    assert float((card["K_fb"] - cpu["K_fb"]).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.gpu
+def test_graph_associative_solve_at_bench_horizon(cuda_device):
+    """The associative Riccati pass captures at bench 3's horizon (51
+    value-function blocks: batched solves that PyTorch would send to MAGMA,
+    which a capture refuses, were it not for ``device.use_cusolver``), and
+    the replayed one-iteration solve equals the eager one bit for bit."""
+    from opendog_tpu_torch.physics import dynamics, make_state
+    from opendog_tpu_torch.solvers import ILQRConfig, costs, make_ilqr
+    m = load_go1("flat", device=cuda_device)
+    cost = costs.standing_cost(m, 0.265, m.key_qpos[0, 7:])
+    cfg = ILQRConfig(horizon=50, n_substeps=2, rollout_dt=0.01, iterations=1,
+                     riccati="associative")
+    st, _ = dynamics.step(m, make_state(m, "home"), m.key_ctrl[0],
+                          n_substeps=200)
+    U0 = m.key_ctrl[0][None].repeat(cfg.horizon, 1)
+    out = []
+    for graphs in (False, True):
+        U, X, stats = make_ilqr(m, cost, cfg, device=cuda_device,
+                                graphs=graphs)(st, U0)
+        out.append(dict(U=U, X=X, **stats))
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+    assert float(out[0]["cost"]) < float(out[0]["initial_cost"])
