@@ -21,8 +21,10 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              with their own per-geom planes (K=256 x 2, K=1 x 10);
              plane_payload on the domain-randomised batch (K=4096 x 10);
              pergeom_payload on the terrain states with payloads U(0, 3) kg
-             (K=256 x 2); and, check only, all six at a ragged K=257 x 2
-             (the last block of the kernels part full);
+             (K=256 x 2); flat and payload at the distiller's shapes (Go1
+             expert K=4096 x 2, plant K=8 x 10; OpenDOG bench 5 expert
+             K=512 x 2); and, check only, all six at a ragged K=257 x 2 and
+             flat at bench 5's OpenDOG plant K=8 x 10;
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc: the tick captured in a CUDA graph (graph_tick) must
@@ -109,6 +111,40 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              (the flat plant step on the card, read to the host before
              each tick, applying each returned control): the same fields
              and gates, 25 rollout + lag + 1 plant launches per tick;
+  distill  - MPC -> policy distillation (BASELINE config 5) at the full
+             width of the committed command student: Go1, cmd_distill_setup
+             (trot_cost_cmd, trot_gait_ref_cmd residual base), the expert
+             MPPI K=512, H=25, 2 x 10 ms, sigma 0.10, temperature 0.2,
+             anchored with anchor_w 15, batched over S=8 scenarios on the
+             eval grid's commands (one launch over S x K = 4096 lanes per
+             rollout step), plant 10 x 2 ms (K=8), the 512-256 student with
+             the previous control and the command, Adam lr 1e-3, batch 512,
+             8 epochs.  The graphed collect tick against the eager one on
+             the same injected normals and drive masks for 4 ticks, bit for
+             bit; ms per collect tick eager and graph; 2 rounds of 50 ticks
+             (beta 1, then 0.93) into an aggregate buffer, each followed by
+             3 train_on calls on resamples of 8192 rows; 100 student-only
+             eval ticks.  Gates: 25 K=4096 x2 and 1 K=8 x10 launches per
+             tick, counted per replay (and once more in the eager warm-up
+             tick of each capture); finite losses; every applied control
+             in ctrlrange to 1e-6; trunk z in (0.12, 0.45) at every tick of
+             round 0.  Prints ms per tick, s per train_on,
+             expert_labels_per_sec, action_rmse and the peak memory;
+  distill-payload - the same with payload_range (0, 1.5) kg on K2: the
+             graph check, one round of 20 ticks and its 3 train_on calls,
+             the same gates;
+  distill-bench5 - scripts/bench_suite.py:578-622 (5_distill_round):
+             OpenDOG standing, S=8, K=64, H=10, the 64-64 student, 50
+             ticks; a capture round, then one timed round_fn and 100 eval
+             ticks; prints the bench's fields;
+  student  - the committed runs/distill_go1 and runs/distill_cmd students,
+             read without flax (rl/student_io.py) and deployed by
+             load_student on the flat plant kernel (K=8 x10) for 100 ticks,
+             the command student on the eval grid: finite, trunk z in
+             (0.12, 0.45), more than 0.15 m forward (the walking student;
+             the command student on its 0.5 m/s command, every command
+             upright); prints mean_vx per command beside the artifact's
+             record (400 ticks on the JAX package's plant, not a target);
   profile  - torch.profiler over 10 ticks of the flat, terrain and
              exact-terrain loops, eager and graph;
   timing   - CUDA-event times of every kernel at each of its path shapes,
@@ -117,12 +153,14 @@ The last lines are the wall time, the card's name and power limit, one JSON
 object of kernel records, and {"ok": true, "device": {...}}.
 """
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 TICKS = 250            # flat trot loop
 TERRAIN_TICKS = 100    # per-geom terrain MPC
 TRUNK_TICKS = 50       # trunk-plane terrain MPC
@@ -168,6 +206,18 @@ ILQR_Z_BAND = (0.15, 0.4)  # bench 3's healthy trunk z after a cycle
 TROT_Z_MIN = 0.12          # bench 3b's healthy: min trunk z over all ticks
 TROT_Z_LAST = (0.18, 0.4)  # and the mean over the last cycle
 TROT_MIN_DIST = 0.1        # bench 3b's locomotes [m]
+# [distill] (BASELINE config 5; scripts/distill_cmd.py): S scenarios, the
+# expert's K=512 samples each on one launch of S x K lanes
+DISTILL = dict(S=8, rounds=2, ticks=50, eval_ticks=100, train_n=8192,
+               trains=3, anchor_w=15.0, beta_decay=0.93)
+DISTILL_EXPERT = dict(K=8 * 512, dt=0.01, n=2)
+DISTILL_PLANT = dict(K=8, dt=0.002, n=10)
+DISTILL_EQ_TICKS = 4       # graph vs eager collect ticks on the same draws
+PAYLOAD_DISTILL = dict(ticks=20, payload_hi=1.5)
+BENCH5 = dict(S=8, K=64, H=10, ticks=50, eval_ticks=100)
+BENCH5_EXPERT = dict(K=8 * 64, dt=0.01, n=2)
+STUDENT_TICKS = 100
+STUDENT_MIN_X = 0.15       # tests/test_distill.py's forward gate [m]
 
 
 def log(msg):
@@ -384,6 +434,22 @@ class Smoke:
         self.check("pergeom_payload rollout", dog_t, ROLLOUT, "per_geom",
                    True, terrain_batch(dog_t, self.terrain, K)
                    + random_modes(dog_t, K, False, True)[1:])
+        Kd, Kp = DISTILL_EXPERT["K"], DISTILL_PLANT["K"]
+        self.check("flat distill expert", go1, DISTILL_EXPERT, False, False,
+                   random_batch(go1, Kd) + none)
+        self.check("flat distill plant", go1, DISTILL_PLANT, False, False,
+                   random_batch(go1, Kp) + none)
+        self.check("payload distill expert", go1, DISTILL_EXPERT, False, True,
+                   random_batch(go1, Kd) + random_modes(go1, Kd, False, True))
+        self.check("payload distill plant", go1, DISTILL_PLANT, False, True,
+                   random_batch(go1, Kp) + random_modes(go1, Kp, False, True))
+        self.check("flat bench5 expert", dog, BENCH5_EXPERT, False, False,
+                   random_batch(dog, BENCH5_EXPERT["K"], on_ground=True)
+                   + none)
+        # the launch counter keys by shape, not model: bench 5's OpenDOG
+        # plant counts under the Go1 plant's row
+        self.check("flat bench5 plant", dog, DISTILL_PLANT, False, False,
+                   random_batch(dog, Kp, on_ground=True) + none, keep=False)
         Kr = RAGGED["K"]
         self.check("flat ragged", go1, RAGGED, False, False,
                    random_batch(go1, Kr) + none, keep=False)
@@ -1301,6 +1367,332 @@ class Smoke:
         if not finite:
             raise RuntimeError("[batch] non-finite state")
 
+    # -- distillation (BASELINE config 5) ---------------------------------
+    def settled_state(self, model):
+        """scripts/distill_cmd.py's start: home settled 150 substeps under
+        the hold control, at rest, time 0."""
+        from opendog_tpu_torch.physics import State, dynamics, make_state
+        torch = self.torch
+        rng = model.actuator_ctrlrange
+        hold = torch.clamp(model.key_ctrl[0], rng[:, 0], rng[:, 1])
+        s0, _ = dynamics.step(model, make_state(model, "home"), hold, None,
+                              n_substeps=150)
+        return State(qpos=s0.qpos, qvel=torch.zeros_like(s0.qvel),
+                     time=torch.zeros((), device=self.dev))
+
+    def check_trace(self, label, model, trace, z_band):
+        """Every applied control finite and in ctrlrange to RANGE_TOL; with
+        ``z_band``, every trunk z inside it."""
+        torch = self.torch
+        rng = model.actuator_ctrlrange
+        c, q = trace["ctrl"], trace["qpos"]
+        out = float(torch.clamp(torch.maximum(rng[:, 0] - c, c - rng[:, 1]),
+                                min=0).max())
+        finite = bool(torch.isfinite(c).all() and torch.isfinite(q).all())
+        z = q[..., 2]
+        log(f"[{label}] {c.shape[0]} ticks x {c.shape[1]} scenarios: "
+            f"controls leave ctrlrange by at most {out:.3e} (tolerance "
+            f"{RANGE_TOL:.0e}), trunk z {float(z.min()):.4f}..."
+            f"{float(z.max()):.4f}, finite {finite}")
+        if not finite:
+            raise RuntimeError(f"[{label}] non-finite control or state")
+        if not out <= RANGE_TOL:
+            raise RuntimeError(f"[{label}] a control left ctrlrange by {out}")
+        if z_band is not None and not bool(((z > z_band[0])
+                                            & (z < z_band[1])).all()):
+            raise RuntimeError(f"[{label}] trunk z left {z_band}")
+
+    def distill(self, label, payload_hi, rounds, ticks, eval_ticks):
+        """The command distiller at full width (see the module docstring):
+        graph vs eager, ``rounds`` rounds of ``ticks`` collect ticks with
+        their train_on calls, ``eval_ticks`` eval ticks."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from dataclasses import replace
+        from opendog_tpu_torch.physics import State, spatial
+        from opendog_tpu_torch.rl.distill import DistillConfig, make_distiller
+        from opendog_tpu_torch.rl.distill_zoo import cmd_distill_setup
+        from opendog_tpu_torch.solvers import mppi
+        script = distill_script()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        setup = cmd_distill_setup("go1", engine="kernel", device=dev)
+        m, mcfg, S = setup.model, setup.mppi_config, DISTILL["S"]
+        use_payload = payload_hi > 0
+        cfg = DistillConfig(num_scenarios=S, rollout_ticks=ticks, lr=1e-3,
+                            batch_size=512, epochs_per_round=8,
+                            beta_decay=DISTILL["beta_decay"])
+
+        def make(graphs, T):
+            return make_distiller(
+                m, setup.cost, setup.obs_fn, setup.net, mcfg,
+                replace(cfg, rollout_ticks=T), plant_substeps=10,
+                action_ref_fn=setup.u_ref, with_prev_ctrl=True,
+                command_dim=3, anchor_w=DISTILL["anchor_w"],
+                payload_range=(0.0, payload_hi) if use_payload else None,
+                device=dev, graphs=graphs)
+
+        log(f"[{label}] Go1 cmd_distill_setup, {mcfg}, anchor_w "
+            f"{DISTILL['anchor_w']}, S={S} on the eval grid's commands, "
+            f"plant 10 x 2 ms, student 512-256 on {setup.net.obs_dim} "
+            f"inputs, {cfg}"
+            + (f", payloads U(0, {payload_hi}) kg" if use_payload else ""))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        s0 = self.settled_state(m)
+        plants = State(qpos=script.jitter(torch, spatial, gen, s0.qpos, S,
+                                          yaw_range=0.6),
+                       qvel=torch.zeros(S, m.nv, device=dev),
+                       time=torch.zeros(S, device=dev))
+        cmds = torch.tensor(script.EVAL_CMDS_BY_ROBOT["go1"], device=dev)
+        payloads = (torch.from_numpy(np.random.default_rng(0).uniform(
+            0.0, payload_hi, S).astype(np.float32)).to(dev)
+            if use_payload else None)
+        dmain = make(True, ticks)
+        dstate = dmain.init(gen, s0)
+        ms0 = mppi.init_state(m, mcfg, scenarios=S)
+        K, H = mcfg.num_samples, mcfg.horizon
+
+        def want(n_ticks):
+            return {cs.launch_key(S * K, mcfg.n_substeps, False, use_payload):
+                    H * n_ticks,
+                    cs.launch_key(S, 10, False, use_payload): n_ticks}
+
+        # graph vs eager on the same injected draws
+        EQ = DISTILL_EQ_TICKS
+        g2 = torch.Generator(device=dev).manual_seed(5)
+        normals = torch.randn((EQ, S, K, H, m.nu), generator=g2, device=dev)
+        drive = torch.rand((EQ, S, 1), generator=g2, device=dev) < 0.5
+        sides, walls = {}, {}
+        for side, graphs in (("graph", True), ("eager", False)):
+            d = make(graphs, EQ)
+            st = d.init(None, s0, params=dstate.params)
+            for call in range(2):
+                # a graph's first call runs the tick once eagerly (its
+                # warm-up), captures it and replays it EQ times
+                trace = {}
+                t0 = time.perf_counter()
+                p2, ms2, _, obs, labels = self.counted(
+                    f"{label} check {side}", lambda: d.collect(
+                        st, plants, ms0, 0.5, payloads, cmds, normals, drive,
+                        trace), want(EQ + int(graphs and call == 0)))
+                walls[(side, call)] = time.perf_counter() - t0
+            sides[side] = dict(obs=obs, labels=labels, plant_qpos=p2.qpos,
+                               plant_qvel=p2.qvel, plant_time=p2.time,
+                               nominal=ms2.nominal, **trace)
+        self.same_bits(label, f"the first {EQ} collect ticks on the same "
+                       "normals and drive masks", sides["graph"],
+                       sides["eager"])
+        e, g = (1e3 * walls[(side, 1)] / EQ for side in ("eager", "graph"))
+        log(f"[{label}] ms per collect tick: eager {e:.3f}, graph {g:.3f} "
+            f"({e / g:.2f}x, same call, {EQ} ticks each, after a first call "
+            f"of {1e3 * walls[('graph', 0)] / EQ:.3f} ms/tick graph with its "
+            f"capture and {1e3 * walls[('eager', 0)] / EQ:.3f} eager)")
+        self.pairs[label] = dict(eager_ms=e, graph_ms=g, n=EQ,
+                                 unit="collect tick")
+
+        # rounds into an aggregate buffer, each with its train_on calls
+        rng = np.random.default_rng(0)
+        buf_obs, buf_lab, fields = [], [], dict(rounds=[])
+        for r in range(rounds):
+            beta = DISTILL["beta_decay"] ** r
+            trace = {}
+
+            def run():
+                t0 = time.perf_counter()
+                out = dmain.collect(dstate, plants, ms0, beta, payloads, cmds,
+                                    trace=trace)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, out
+
+            # round 0 captures the tick: one eager warm-up tick first
+            wall, (plants, _, _, obs, labels) = self.counted(
+                f"{label} round {r} collect", run,
+                want(ticks + int(r == 0)))
+            self.check_trace(f"{label} round {r}", m, trace,
+                             setup.z_band if r == 0 else None)
+            buf_obs.append(obs)
+            buf_lab.append(labels)
+            all_obs, all_lab = torch.cat(buf_obs), torch.cat(buf_lab)
+            train_s, losses = [], []
+            for _ in range(DISTILL["trains"]):
+                idx = torch.from_numpy(rng.integers(
+                    0, all_obs.shape[0], DISTILL["train_n"])).to(dev)
+                t0 = time.perf_counter()
+                dstate, loss = dmain.train_on(dstate, all_obs[idx],
+                                              all_lab[idx])
+                losses.append(float(loss))
+                train_s.append(time.perf_counter() - t0)
+            if not np.isfinite(losses).all():
+                raise RuntimeError(f"[{label}] round {r}: loss {losses}")
+            rec = dict(beta=beta, collect_seconds=wall,
+                       ms_per_tick=1e3 * wall / ticks,
+                       expert_labels_per_sec=S * ticks / wall,
+                       train_on_seconds=train_s, losses=losses,
+                       buffer_rows=int(all_obs.shape[0]),
+                       label_rms=float(labels.square().mean().sqrt()))
+            log(f"[{label}] round {r} (beta {beta:.3f}"
+                f"{', with the capture' if r == 0 else ''}): "
+                + json.dumps(rec))
+            fields["rounds"].append(rec)
+        if eval_ticks:
+            def run_eval():
+                t0 = time.perf_counter()
+                out = dmain.eval_fn(dstate, plants, eval_ticks, payloads,
+                                    cmds)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, out
+
+            wall, ev = self.counted(f"{label} eval", run_eval,
+                                    want(eval_ticks + 1))  # + the warm-up
+            self.check_trace(f"{label} eval", m, dict(
+                ctrl=ev["ctrl_traj"], qpos=ev["qpos_traj"]), None)
+            fields.update(action_rmse=float(ev["action_rmse"]),
+                          eval_seconds=wall,
+                          eval_ms_per_tick=1e3 * wall / eval_ticks,
+                          eval_final_x=ev["final_x"].tolist(),
+                          eval_final_z=ev["final_z"].tolist())
+        steady = fields["rounds"][-1]
+        fields.update(
+            expert_labels_per_sec=steady["expert_labels_per_sec"],
+            ms_per_collect_tick=dict(eager=e, graph=g,
+                                     graph_round=steady["ms_per_tick"]),
+            seconds_per_train_on=float(np.mean(
+                [x for rec in fields["rounds"]
+                 for x in rec["train_on_seconds"]])),
+            peak_memory_mib=(torch.cuda.max_memory_allocated() - mem0)
+            / 2 ** 20)
+        log(f"[{label}] fields: " + json.dumps(
+            {k: v for k, v in fields.items() if k != "rounds"}))
+        log(f"[{label}] {nvidia_smi_line()}")
+        return fields
+
+    def bench5(self):
+        """scripts/bench_suite.py:578-622 (5_distill_round) on the port."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import State, make_state
+        from opendog_tpu_torch.rl.distill import DistillConfig, make_distiller
+        from opendog_tpu_torch.rl.networks import MLPActorCritic
+        from opendog_tpu_torch.solvers import MPPIConfig, costs
+        m, S = self.dog, BENCH5["S"]
+        cost = costs.standing_cost(m, 0.065, m.key_qpos[0, 7:])
+        net = MLPActorCritic(m.nq - 2 + m.nv, m.nu, hidden=(64, 64),
+                             device=dev)
+        dcfg = DistillConfig(num_scenarios=S, rollout_ticks=BENCH5["ticks"],
+                             batch_size=64, epochs_per_round=4)
+        mcfg = MPPIConfig(horizon=BENCH5["H"], num_samples=BENCH5["K"],
+                          n_substeps=2, rollout_dt=0.01, engine="kernel")
+        d = make_distiller(m, cost, lambda qp, qv, t: torch.cat(
+            [qp[..., 2:], qv], dim=-1), net, mcfg, dcfg, plant_substeps=10,
+            device=dev)
+        s0 = make_state(m, "home")
+        plants = State(qpos=s0.qpos[None].repeat(S, 1),
+                       qvel=torch.zeros(S, m.nv, device=dev),
+                       time=torch.zeros(S, device=dev))
+        dstate = d.init(torch.Generator(device=dev).manual_seed(0), s0)
+        dstate, plants, _ = d.round_fn(dstate, plants, 0)  # captures
+        torch.cuda.synchronize()
+        want = {cs.launch_key(S * BENCH5["K"], 2):
+                BENCH5["H"] * dcfg.rollout_ticks,
+                cs.launch_key(S, 10): dcfg.rollout_ticks}
+
+        def run():
+            t0 = time.perf_counter()
+            out = d.round_fn(dstate, plants, 0)
+            loss = float(out[2]["distill_loss"])
+            return time.perf_counter() - t0, out, loss
+
+        dt, (dstate, plants, _), loss = self.counted("distill-bench5", run,
+                                                     want)
+        ev = d.eval_fn(dstate, plants, BENCH5["eval_ticks"])
+        zs = ev["qpos_traj"][:, :, 2]
+        fields = dict(
+            round_seconds=dt,
+            expert_labels_per_sec=S * dcfg.rollout_ticks / dt,
+            distill_loss=loss,
+            student_action_rmse=float(ev["action_rmse"]),
+            student_upright_frac=float(((zs > 0.03) & (zs < 0.25)).float()
+                                       .mean()),
+            healthy=bool(np.isfinite(loss)))
+        log("[distill-bench5] 5_distill_round fields: " + json.dumps(fields))
+        if not fields["healthy"]:
+            raise RuntimeError("[distill-bench5] non-finite loss")
+        return fields
+
+    def students(self):
+        """The committed students deployed on the flat plant kernel."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import spatial
+        from opendog_tpu_torch.rl.distill_zoo import (cmd_distill_setup,
+                                                      load_student,
+                                                      trot_distill_setup)
+        from opendog_tpu_torch.utils.cmd_tracking import segment_record
+        script = distill_script()
+        grid = script.EVAL_CMDS_BY_ROBOT["go1"]
+        S, out = len(grid), {}
+        for run, setup_fn, cmd_dim in (
+                ("runs/distill_go1", trot_distill_setup, 0),
+                ("runs/distill_cmd", cmd_distill_setup, 3)):
+            setup = setup_fn("go1", engine="kernel", device=dev)
+            m = setup.model
+            policy = load_student(os.path.join(ROOT, run, "student.msgpack"),
+                                  setup, command_dim=cmd_dim)
+            plant = cs.build_cuda_substep(m, m.timestep, 10, device=dev)
+            rng = m.actuator_ctrlrange
+            prev = torch.clamp(m.key_ctrl[0], rng[:, 0], rng[:, 1]).expand(
+                S, m.nu)
+            qpos = m.key_qpos[0][None].repeat(S, 1)
+            qvel = torch.zeros(S, m.nv, device=dev)
+            t = torch.zeros(S, device=dev)
+            cmds = torch.tensor(grid, device=dev) if cmd_dim else None
+
+            def roll():
+                nonlocal qpos, qvel, t, prev
+                qs, cs_ = [], []
+                t0 = time.perf_counter()
+                for _ in range(STUDENT_TICKS):
+                    u = policy(qpos, qvel, t, prev, cmds)
+                    qp, qv = plant(qpos.T.contiguous(), qvel.T.contiguous(),
+                                   u.T.contiguous())
+                    qpos, qvel, t, prev = qp.T, qv.T, t + 10 * m.timestep, u
+                    qs.append(qpos)
+                    cs_.append(u)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0, torch.stack(qs),
+                        torch.stack(cs_))
+
+            wall, qs, us = self.counted(
+                f"student {run}", roll,
+                {cs.launch_key(S, 10): STUDENT_TICKS})
+            self.check_trace(f"student {run}", m, dict(ctrl=us, qpos=qs),
+                             setup.z_band)
+            x = qs[-1, :, 0]
+            lane = 2 if cmd_dim else 0   # the 0.5 m/s command
+            log(f"[student] {run}: {STUDENT_TICKS} ticks ({wall:.3f} s), "
+                f"final x {[round(v, 4) for v in x.tolist()]}")
+            if not float(x[lane]) > STUDENT_MIN_X:
+                raise RuntimeError(f"[student] {run}: {float(x[lane])} m is "
+                                   f"not more than {STUDENT_MIN_X} m")
+            rec = dict(final_x=x.tolist(), wall_s=wall)
+            if cmd_dim:
+                with open(os.path.join(ROOT, run, "metrics.json")) as f:
+                    art = {tuple(p["cmd"]): p["mean_vx"]
+                           for p in json.load(f)["per_command"]}
+                q = qs.cpu().numpy()
+                rows = []
+                for i, c in enumerate(grid):
+                    yaw = float(spatial.euler_from_quat(qs[-1, i, 3:7])[2])
+                    sr = segment_record(q[:, i, :2], yaw, c)
+                    rows.append(dict(cmd=c, mean_vx=sr["mean_vx_cmd_frame"],
+                                     yaw_end=sr["yaw_end"],
+                                     artifact_mean_vx=art.get(tuple(c))))
+                log(f"[student] {run}: mean_vx per command over the second "
+                    f"half of {STUDENT_TICKS} ticks on the K1 plant, beside "
+                    "the artifact's record (400 ticks, the JAX package's "
+                    "plant; a record, not a target): " + json.dumps(rows))
+                rec["per_command"] = rows
+            out[run] = rec
+        return out
+
     # -- profile ----------------------------------------------------------
     def profile(self, label, tick, carry, n=10):
         """Device busy share and kernel time by name over ``n`` ticks.  Only
@@ -1428,7 +1820,7 @@ class Smoke:
             args = rec["args"]
             ms = event_ms(torch, lambda: rec["kern"](*args),
                           200 if n * K < 20000 else 50)
-            plain_ms = event_ms(torch, lambda: rec["plain"](*args), 2)
+            plain_ms = event_ms(torch, lambda: rec["plain"](*args), 1)
             ops = scalar_core.count_substep_ops(
                 model, shape["dt"], *rec["modes"]) * K * n
             nbytes = 4 * sum(a.numel() for a in args if a is not None) + 4 * K * (
@@ -1463,6 +1855,18 @@ class Smoke:
                 raise RuntimeError(f"[timing] {label}: no path launched "
                                    f"{rec['key']}")
         return kernels
+
+
+def distill_script():
+    """scripts/torch_distill_cmd.py as a module: its eval grid and start
+    jitter."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_distill_cmd", os.path.join(ROOT, "scripts",
+                                          "torch_distill_cmd.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def loop_fields(lat, overruns, lag):
@@ -1548,6 +1952,13 @@ def main():
     ilqr_trot = smoke.ilqr_trot()
     realtime = smoke.realtime(flat)
     bridge = smoke.bridge(flat, realtime["host_loop_control_delay_ticks"])
+    distill = smoke.distill("distill", 0.0, DISTILL["rounds"],
+                            DISTILL["ticks"], DISTILL["eval_ticks"])
+    distill_payload = smoke.distill("distill-payload",
+                                    PAYLOAD_DISTILL["payload_hi"], 1,
+                                    PAYLOAD_DISTILL["ticks"], 0)
+    bench5 = smoke.bench5()
+    students = smoke.students()
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
@@ -1564,6 +1975,14 @@ def main():
     log("[summary] ilqr-trot (bench 3b): " + json.dumps(ilqr_trot))
     log("[summary] terrain final_dev_vs_exact_plant_m: "
         + json.dumps(deviation))
+    for label, fields in (("distill", distill),
+                          ("distill-payload", distill_payload)):
+        log(f"[summary] {label}: " + json.dumps(
+            {k: v for k, v in fields.items() if k != "rounds"}))
+    log("[summary] distill-bench5 (5_distill_round): " + json.dumps(bench5))
+    log("[summary] student: " + json.dumps(
+        {run: {k: v for k, v in rec.items() if k != "per_command"}
+         for run, rec in students.items()}))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,16 +1,20 @@
 """Task cost functions for the trajectory-optimization solvers.
 
-Port of ``opendog_tpu/solvers/costs.py:21-181`` and, for the whole-body
-iLQR, of its contact schedules and gait reference (``:345-570``:
+Port of ``opendog_tpu/solvers/costs.py``: the tracking, standing and trot
+costs, the command-conditioned trot cost and gait reference (``:184-344``:
+``trot_cost_cmd``, ``ref_takes_cmd``, ``trot_gait_ref_cmd``) and, for the
+whole-body iLQR, the contact schedules and gait reference (``:345-570``:
 ``ContactSchedule``, ``trot_schedule``, ``landing_schedule``,
 ``contact_schedule_cost``, ``trot_gait_ref``).  A cost is a per-step
 function ``cost(state, ctrl, prev_ctrl) -> cost`` that works batch-first:
 ``state.qpos`` (K, nq), ``state.qvel`` (K, nv), ``state.time`` (K,), ``ctrl``
 and ``prev_ctrl`` (K, nu) give a (K,) cost; unbatched inputs give a scalar.
-Constants live on the model's device.
+A command-conditioned cost takes a trailing ``cmd``, one ``(vx, vy,
+yaw_target)`` row per lane: (K, 3).  Constants live on the model's device.
 """
 from __future__ import annotations
 
+import inspect
 import math
 from dataclasses import dataclass
 
@@ -81,9 +85,10 @@ def standing_cost(model, target_height: float, home_joint_qpos):
 @dataclass(frozen=True)
 class TrotCostParams:
     """Phase-referenced diagonal trot (the MPC analog of the reference's
-    phase-conditioned symmetric gait, sim2real/train.py:235-285).  The
-    command-conditioned fields of the JAX package (``amp_v0``,
-    ``amp_knots``, ``turn_gain``) come with ``trot_cost_cmd`` (ROADMAP M10)."""
+    phase-conditioned symmetric gait, sim2real/train.py:235-285).  The last
+    three fields shape the command-conditioned gait of
+    :func:`trot_cost_cmd` and :func:`trot_gait_ref_cmd` (see
+    :func:`_cmd_stride_scales`)."""
 
     desired_vel_xy: tuple = (0.5, 0.0)
     target_height: float = 0.265
@@ -101,6 +106,11 @@ class TrotCostParams:
     w_ctrl_rate: float = 0.3
     thigh_phase: float = 1.0     # +1: swing-leg thigh rotates forward with s
     lift_phase: float = 0.0      # knee-lift oscillator phase lead [rad]
+    amp_v0: float = -1.0         # < 0: stride scale linear in the commanded
+    # speed; >= 0: the calibrated affine law with a smooth stand gate
+    amp_knots: tuple = ()        # ((v, scale), ...): a measured piecewise-
+    # linear speed -> scale law, clamped at both ends; overrides amp_v0
+    turn_gain: float = 0.0       # > 0: differential-stride steering
 
 
 def _leg_layout(legs: str, params: TrotCostParams):
@@ -165,6 +175,166 @@ def trot_cost(model, params: TrotCostParams, home_joint_qpos,
                 + c_rate)
 
     return step_cost
+
+
+def _side_signs(model, legs: str) -> torch.Tensor:
+    """+1 for legs on the robot's right (y < 0), -1 for the left: a positive
+    differential strides the right side longer and turns left (+yaw)."""
+    if legs == "go1":       # FR, FL, RR, RL
+        return _const(model, [1.0, -1.0, 1.0, -1.0])
+    return _const(model, [-1.0, 1.0, -1.0, 1.0])  # opendog: FL, FR, BL, BR
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor,
+            fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp(x, xp, fp)`` in the JAX package's arithmetic: linear
+    between the knots, clamped to the end values outside them.  The knot
+    lookup is ``torch.searchsorted`` on the device: no host read."""
+    n = xp.shape[0]
+    i = torch.searchsorted(xp, x.reshape(-1), right=True).reshape(x.shape)
+    i = torch.clamp(i, 1, n - 1)
+    x0, x1 = _rows(xp, i - 1), _rows(xp, i)
+    f0, f1 = _rows(fp, i - 1), _rows(fp, i)
+    dx = x1 - x0
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(dx0, f0,
+                    f0 + ((x - x0) / torch.where(dx0, torch.ones_like(dx),
+                                                 dx)) * (f1 - f0))
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _cmd_stride_scales(params: TrotCostParams, v_nom: float,
+                       side: torch.Tensor, cmd: torch.Tensor, yaw=None,
+                       knots=None) -> torch.Tensor:
+    """(..., 4) per-leg stride scales of the command-conditioned gait for
+    commands ``cmd`` (..., 3).
+
+    Forward part: the linear command scale, or (``amp_v0 >= 0``) the
+    calibrated affine law with a smooth stand gate, or (``amp_knots``, as
+    ``knots = (speeds, scales)`` tensors) the measured piecewise-linear
+    law.  Steering part (``turn_gain > 0``): the differential stride
+    ``side * d``.  ``yaw=None`` is the open-loop (gait reference) form: the
+    heading error is the commanded target itself."""
+    speed = torch.sqrt(torch.sum(torch.square(cmd[..., :2]), dim=-1)
+                       + 1e-12)
+    if len(params.amp_knots) > 0:
+        scale = _interp(speed, *knots)
+    elif params.amp_v0 >= 0.0:
+        scale = torch.clamp((speed + params.amp_v0)
+                            / (v_nom + params.amp_v0), 0.0, 1.5) \
+            * torch.clamp(speed / 0.1, max=1.0)
+    else:
+        scale = torch.clamp(speed / v_nom, 0.0, 1.5)
+    s_leg = scale[..., None] * torch.ones_like(side)
+    if params.turn_gain > 0.0:
+        target = cmd[..., 2]
+        dyaw = (target if yaw is None else
+                torch.atan2(torch.sin(target - yaw), torch.cos(target - yaw)))
+        d = torch.clamp(params.turn_gain * dyaw, -0.5, 0.5)
+        s_leg = s_leg + side * d[..., None]
+    return s_leg
+
+
+def _cmd_gait(model, params: TrotCostParams, legs: str):
+    """What the command-conditioned cost and gait reference share: the leg
+    layout, the nominal speed, the side signs and the speed knots."""
+    v_nom = max(1e-6, float(np.hypot(*params.desired_vel_xy)))
+    knots = None
+    if len(params.amp_knots) > 0:
+        knots = (_const(model, [k[0] for k in params.amp_knots]),
+                 _const(model, [k[1] for k in params.amp_knots]))
+    return _leg_layout(legs, params), v_nom, _side_signs(model, legs), knots
+
+
+def trot_cost_cmd(model, params: TrotCostParams, home_joint_qpos,
+                  legs: str = "go1"):
+    """Command-conditioned :func:`trot_cost`: returns ``step_cost(state,
+    ctrl, prev_ctrl, cmd)`` with ``cmd = (vx, vy, yaw_target)`` per lane in
+    place of the params' fixed ``desired_vel_xy`` / ``desired_yaw``
+    (``mppi.make_solver(with_command=True)``).  The gait term scales with
+    the commanded speed (:func:`_cmd_stride_scales`, with the steering
+    closed on the actual heading): at ``cmd = 0`` the swing collapses to a
+    stand."""
+    home_j = _const(model, home_joint_qpos)
+    (thigh_idx, knee_idx, diag_sign, thigh_dir), v_nom, side, knots = \
+        _cmd_gait(model, params, legs)
+    knee_dir = -1.0
+    sign = _const(model, diag_sign)
+    home_thigh, home_knee = home_j[thigh_idx], home_j[knee_idx]
+
+    def step_cost(state: State, ctrl, prev_ctrl, cmd):
+        qpos, qvel = state.qpos, state.qvel
+        roll, pitch, yaw = spatial.euler_from_quat(qpos[..., 3:7])
+        s_leg = _cmd_stride_scales(params, v_nom, side, cmd, yaw, knots)
+        phase = 2.0 * math.pi * state.time / params.period_s
+        s = torch.sin(phase)[..., None]
+        sl = torch.sin(phase + params.lift_phase)[..., None]
+        swing = torch.where(sign > 0, torch.clamp(sl, min=0.0),
+                            torch.clamp(-sl, min=0.0))
+        thigh_ref = home_thigh + thigh_dir * params.thigh_amp \
+            * s_leg * sign * s
+        knee_ref = home_knee \
+            + knee_dir * params.knee_lift * torch.abs(s_leg) * swing
+        joints = qpos[..., 7:]
+        c_gait = params.w_gait * (
+            _sq_sum(joints[..., thigh_idx] - thigh_ref)
+            + _sq_sum(joints[..., knee_idx] - knee_ref)
+        )
+        c_vel = params.w_vel * _sq_sum(qvel[..., :2] - cmd[..., :2])
+        c_h = params.w_height * torch.square(qpos[..., 2] - params.target_height)
+        c_up = params.w_upright * (torch.square(roll) + torch.square(pitch))
+        c_lat = params.w_lateral * torch.square(qvel[..., 1] - cmd[..., 1])
+        c_yawr = params.w_yaw_rate * torch.square(qvel[..., 5])
+        dyaw = torch.atan2(torch.sin(yaw - cmd[..., 2]),
+                           torch.cos(yaw - cmd[..., 2]))
+        c_head = params.w_heading * torch.square(dyaw)
+        c_rate = params.w_ctrl_rate * _sq_sum(ctrl - prev_ctrl)
+        return (c_gait + c_vel + c_h + c_up + c_lat + c_yawr + c_head
+                + c_rate)
+
+    return step_cost
+
+
+def ref_takes_cmd(u_ref_fn) -> bool:
+    """True if an action reference is command-indexed, ``(t, cmd) -> ctrl``
+    (:func:`trot_gait_ref_cmd`), rather than ``(t) -> ctrl``
+    (:func:`trot_gait_ref`): the one arity convention of the anchored
+    solver, the distiller and student deployment."""
+    return len(inspect.signature(u_ref_fn).parameters) >= 2
+
+
+def trot_gait_ref_cmd(model, params: TrotCostParams, home_joint_qpos,
+                      legs: str = "go1"):
+    """Command-scaled :func:`trot_gait_ref`: ``u_ref(t, cmd)`` with the
+    swing scaled by the commanded speed as :func:`trot_cost_cmd` scales its
+    gait term, steering open loop (``cmd = 0`` gives the home stand).
+    Batch-first: times (...) and commands (..., 3) give controls
+    (..., nu)."""
+    home_j = _const(model, home_joint_qpos)
+    (thigh_idx, knee_idx, diag_sign, thigh_dir), v_nom, side, knots = \
+        _cmd_gait(model, params, legs)
+    knee_dir = -1.0
+    qadr = (model.actuator_qposadr - 7).long()
+    sign = _const(model, diag_sign)
+    home_thigh, home_knee = home_j[thigh_idx], home_j[knee_idx]
+
+    def u_ref(t, cmd):
+        s_leg = _cmd_stride_scales(params, v_nom, side, cmd, None, knots)
+        phase = (2.0 * math.pi * t / params.period_s)[..., None]
+        s = torch.sin(phase)
+        sl = torch.sin(phase + params.lift_phase)
+        swing = torch.where(sign > 0, torch.clamp(sl, min=0.0),
+                            torch.clamp(-sl, min=0.0))
+        joints_ref = home_j.expand(s_leg.shape[:-1] + home_j.shape).clone()
+        joints_ref[..., thigh_idx] = (
+            home_thigh + thigh_dir * params.thigh_amp * s_leg * sign * s)
+        joints_ref[..., knee_idx] = (
+            home_knee + knee_dir * params.knee_lift * torch.abs(s_leg)
+            * swing)
+        return joints_ref[..., qadr]
+
+    return u_ref
 
 
 # ---------------------------------------------------------------------------

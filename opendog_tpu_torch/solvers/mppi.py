@@ -1,12 +1,13 @@
 """MPPI (Model Predictive Path Integral) solver on the substep kernel or
 the op-graph physics step.
 
-Port of ``opendog_tpu/solvers/mppi.py`` on one device, on flat ground or on
-a terrain, with or without a carried payload: no sample mesh, command,
-anchor or terminal cost (ROADMAP M10, M14).  One solve samples K smoothed,
-clipped control plans around the nominal, rolls all of them out, and moves
-the nominal to their softmax-weighted mean.  Two rollout engines, named
-after what runs them (the JAX package names them after its backends):
+Port of ``opendog_tpu/solvers/mppi.py`` on one device (no sample mesh:
+ROADMAP M14), on flat ground or on a terrain, with or without a carried
+payload, a runtime command, an anchor to an action reference and a
+terminal cost.  One solve samples K smoothed, clipped control plans around
+the nominal, rolls all of them out, and moves the nominal to their
+softmax-weighted mean.  Two rollout engines, named after what runs them
+(the JAX package names them after its backends):
 
 * ``engine="kernel"`` (JAX ``"pallas"``): the substep kernel, one launch
   per control step for all K rollouts (``rollout_costs_pallas``); on a
@@ -16,12 +17,18 @@ after what runs them (the JAX package names them after its backends):
   bilinear terrain contact and static boxes (the Go1 ``jump`` and
   ``landing`` platforms need it: the kernel has no box contact).
 
-Noise: the JAX package draws one key per sample; PyTorch cannot reproduce
-those bits.  ``solve`` therefore takes the ``(K, H, nu)`` standard-normal
-draw as an argument (``normals``) or draws it on the device from a
-``torch.Generator``.
+:func:`make_batched_solver` is the counterpart of ``jax.vmap(solve)`` over
+S scenarios: each rollout step is one launch over S x K lanes, scenario s
+owning lanes ``[s K, (s + 1) K)``, and the update reduces over K within
+each scenario.  :func:`make_solver` is the same solve at S = 1.
 
-On the card :func:`graph_solve` replays a solve from a CUDA graph.
+Noise: the JAX package draws one key per sample; PyTorch cannot reproduce
+those bits.  ``solve`` therefore takes the ``(K, H, nu)`` (batched: ``(S,
+K, H, nu)``) standard-normal draw as an argument (``normals``) or draws it
+on the device from a ``torch.Generator``.
+
+On the card :func:`graph_solve` replays a solve, single or batched, from a
+CUDA graph.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
 from ..physics import State, Terrain, dynamics
+from .costs import ref_takes_cmd
 from .graph import GraphedTick
 
 PLANE_MODES = ("trunk", "per_geom")
@@ -60,9 +68,231 @@ class MPPIState:
     nominal: torch.Tensor  # (H, nu)
 
 
-def init_state(model, config: MPPIConfig, key_name: str = "home") -> MPPIState:
+def init_state(model, config: MPPIConfig, key_name: str = "home",
+               scenarios: Optional[int] = None) -> MPPIState:
+    """The keyframe's control held over the horizon: nominal (H, nu), or
+    (S, H, nu) for ``scenarios`` = S (a batched solver's state)."""
     ctrl0 = model.key_ctrl[model.key_id(key_name)]
-    return MPPIState(nominal=ctrl0[None].repeat(config.horizon, 1))
+    nominal = ctrl0[None].repeat(config.horizon, 1)
+    if scenarios is not None:
+        nominal = nominal[None].repeat(scenarios, 1, 1)
+    return MPPIState(nominal=nominal)
+
+
+def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
+               terrain: Optional[Terrain], with_payload: bool,
+               plane_mode: str, terminal_cost: Optional[Callable],
+               with_command: bool, u_ref_fn: Optional[Callable],
+               anchor_w: float):
+    """Checks the options and builds ``core(qpos (S, nq), qvel (S, nv), time
+    (S,), nominal (S, H, nu), normals (S, K, H, nu), payload (S,) or None,
+    command (S, c) or None) -> (ctrl (S, nu), shifted nominal (S, H, nu),
+    stats of (S,))``, the solve of S scenarios at once.  Returns
+    ``(core, device)``."""
+    if config.engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES} (the JAX "
+                         "package's 'pallas' and 'xla'), got "
+                         f"{config.engine!r}")
+    if with_payload and config.engine != "kernel":
+        raise ValueError("payload-aware solves ride the substep kernel's "
+                         "payload rows: with_payload=True needs "
+                         "engine='kernel'")
+    if plane_mode not in PLANE_MODES:
+        raise ValueError(f"plane_mode must be one of {PLANE_MODES}, got "
+                         f"{plane_mode!r}")
+    anchored = u_ref_fn is not None and anchor_w > 0.0
+    ref_cmd = anchored and ref_takes_cmd(u_ref_fn)
+    if ref_cmd and not with_command:
+        raise ValueError("a command-indexed u_ref_fn (t, cmd) needs "
+                         "with_command=True")
+    device = resolve_device(device)
+    use_full_fp32()
+    model = model.to(device)
+    ctrlrange = model.actuator_ctrlrange
+    lo, hi = ctrlrange[:, 0], ctrlrange[:, 1]
+    H, K, nu = config.horizon, config.num_samples, model.nu
+    dt = float(config.rollout_dt) if config.rollout_dt else model.timestep
+    dt_tick = dt * config.n_substeps
+    # plan slot k applies from state.time + k * dt_tick (the distiller's
+    # label is expert - u_ref(state.time) at k = 0)
+    slot_times = dt_tick * torch.arange(H, dtype=torch.float32,
+                                        device=device)
+    if terrain is not None:
+        terrain = terrain.to(device)
+    if config.engine == "kernel":
+        with_plane = (False if terrain is None
+                      else "per_geom" if plane_mode == "per_geom" else True)
+        psub = build_cuda_substep(model, dt, n_substeps=config.n_substeps,
+                                  device=device, with_plane=with_plane,
+                                  with_payload=with_payload)
+    else:
+        rollout_model = model.replace(timestep=dt)
+
+    def bind_cost(command):
+        """The step cost with the lanes' commands bound (the cost itself
+        when the solver takes no command)."""
+        if command is None:
+            return step_cost
+        return lambda st, c, p: step_cost(st, c, p, command)
+
+    def lanes(x: torch.Tensor) -> torch.Tensor:
+        """(S, ...) per-scenario rows -> (S K, ...) per-lane rows."""
+        return x[:, None].expand(x.shape[0], K, *x.shape[1:]).reshape(
+            x.shape[0] * K, *x.shape[1:])
+
+    def local_planes(qpos: torch.Tensor) -> torch.Tensor:
+        """Contact plane rows of the rollouts, (rows, S K): the terrain's
+        tangent plane(s) under each scenario's solve-from state.
+        ``"trunk"``: one plane at the trunk's xy shared by every geom (4
+        rows); ``"per_geom"``: each geom's own plane (4 * ngeom rows)."""
+        if plane_mode == "per_geom":
+            planes = dynamics.geom_local_planes(model, terrain, qpos)
+            rows = planes.reshape(qpos.shape[0], -1)  # 4g..4g+3 per geom
+        else:
+            h, n = dynamics._terrain_height_normal(model, terrain,
+                                                   qpos[:, :2])
+            p0 = torch.stack([qpos[:, 0], qpos[:, 1], h], dim=-1)
+            rows = torch.cat([n, torch.sum(n * p0, dim=-1)[:, None]], dim=-1)
+        return lanes(rows).T.contiguous()
+
+    def rollout_costs_kernel(qpos, qvel, time, candidates, payload,
+                             command):
+        """(S K,) total cost of every lane's plan: carry in the (rows, S K)
+        layout, one kernel launch per control step."""
+        L = candidates.shape[0]
+        cost_fn = bind_cost(command)
+        qp = lanes(qpos).T.contiguous()
+        qv = lanes(qvel).T.contiguous()
+        ctrl_rows = candidates.permute(1, 2, 0).contiguous()  # (H, nu, L)
+        extra = {}
+        if terrain is not None:
+            extra["plane"] = local_planes(qpos)
+        if with_payload:
+            extra["payload"] = lanes(payload).reshape(1, L).contiguous()
+        prev_ctrl = candidates[:, 0]
+        t = lanes(time)
+        disc = 1.0
+        total = None
+        for h in range(H):
+            ctrl = candidates[:, h]
+            qp, qv = psub(qp, qv, ctrl_rows[h], **extra)
+            t = t + dt_tick
+            st = State(qpos=qp.T, qvel=qv.T, time=t)
+            c = cost_fn(st, ctrl, prev_ctrl) * disc
+            total = c if total is None else total + c
+            prev_ctrl = ctrl
+            disc = disc * config.gamma
+        if terminal_cost is not None:
+            total = total + terminal_cost(st)
+        return total
+
+    def rollout_costs_ops(qpos, qvel, time, candidates, payload, command):
+        """(S K,) total cost of every lane's plan: the op-graph step over
+        all lanes at once, one call per control step (the JAX package's
+        vmapped ``rollout_cost``)."""
+        cost_fn = bind_cost(command)
+        st = State(qpos=lanes(qpos), qvel=lanes(qvel), time=lanes(time))
+        prev_ctrl = candidates[:, 0]
+        disc = 1.0
+        total = None
+        for h in range(H):
+            ctrl = candidates[:, h]
+            st, _ = dynamics.step(rollout_model, st, ctrl, terrain,
+                                  n_substeps=config.n_substeps)
+            c = cost_fn(st, ctrl, prev_ctrl) * disc
+            total = c if total is None else total + c
+            prev_ctrl = ctrl
+            disc = disc * config.gamma
+        if terminal_cost is not None:
+            total = total + terminal_cost(st)
+        return total
+
+    rollout_costs = (rollout_costs_kernel if config.engine == "kernel"
+                     else rollout_costs_ops)
+
+    def sample_candidates(nominal: torch.Tensor,
+                          normals: torch.Tensor) -> torch.Tensor:
+        """(S, K, H, nu) clipped candidate plans.  Colored (low-pass)
+        exploration noise keeps the position servos from chattering."""
+        e = normals * config.noise_sigma
+        c = torch.zeros_like(e[:, :, 0])
+        eps = []
+        for h in range(H):
+            c = (config.smooth_alpha * c
+                 + (1 - config.smooth_alpha) * e[:, :, h])
+            eps.append(c)
+        eps = torch.stack(eps, dim=2)
+        return torch.clamp(nominal[:, None] + eps, lo, hi)
+
+    def ref_seq(time, command):
+        """(S, H, nu) anchor targets, u_ref at each plan slot's time."""
+        ts = time[:, None] + slot_times
+        if ref_cmd:
+            return u_ref_fn(ts, command[:, None].expand(
+                command.shape[0], H, command.shape[-1]))
+        return u_ref_fn(ts)
+
+    def weighted_update(candidates, costs):
+        """Softmax-weighted nominal of each scenario, reduced over its K
+        lanes."""
+        beta = torch.min(costs, dim=1).values
+        w_un = torch.exp(-(costs - beta[:, None]) / config.temperature)
+        denom = torch.sum(w_un, dim=1)
+        new_nominal = (torch.einsum("sk,skhu->shu", w_un, candidates)
+                       / denom[:, None, None])
+        stats = dict(
+            best_cost=beta,
+            mean_cost=torch.sum(costs, dim=1) / K,
+            # effective sample size of the normalised weights
+            ess=torch.square(denom) / torch.sum(torch.square(w_un), dim=1),
+        )
+        return new_nominal, stats
+
+    def core(qpos, qvel, time, nominal, normals, payload=None,
+             command=None):
+        S = qpos.shape[0]
+        candidates = sample_candidates(nominal, normals)
+        flat = candidates.reshape(S * K, H, nu)
+        costs = rollout_costs(
+            qpos, qvel, time, flat, payload,
+            None if command is None else lanes(command)).reshape(S, K)
+        if anchored:
+            costs = costs + anchor_w * torch.sum(torch.square(
+                candidates - ref_seq(time, command)[:, None]), dim=(2, 3))
+        # diverged rollouts must not poison the softmax: treat non-finite
+        # costs as very bad, not NaN
+        costs = torch.where(torch.isfinite(costs), costs,
+                            torch.full_like(costs, 1e9))
+        new_nominal, stats = weighted_update(candidates, costs)
+        ctrl = new_nominal[:, 0]
+        # receding horizon: shift, repeat last
+        shifted = torch.cat([new_nominal[:, 1:], new_nominal[:, -1:]], dim=1)
+        return ctrl, shifted, stats
+
+    return core, device
+
+
+def _trailing(aux, with_payload: bool, with_command: bool, S: int, device):
+    """(payload (S,) or None, command (S, c) or None) from a solve's
+    trailing arguments ``[payload][, command]``.  A float payload becomes a
+    fill, not a copy of host data, so a graph can capture it."""
+    expect = int(with_payload) + int(with_command)
+    if len(aux) != expect:
+        raise ValueError(
+            f"solver built with_payload={with_payload}, with_command="
+            f"{with_command}: expected {expect} trailing args (payload "
+            f"first), got {len(aux)}")
+    payload = command = None
+    if with_payload:
+        payload = aux[0]
+        if torch.is_tensor(payload):
+            payload = payload.reshape(-1).expand(S)
+        else:
+            payload = torch.full((S,), float(payload), dtype=torch.float32,
+                                 device=device)
+    if with_command:
+        command = aux[-1].reshape(S, -1)
+    return payload, command
 
 
 def make_solver(
@@ -73,10 +303,14 @@ def make_solver(
     terrain: Optional[Terrain] = None,
     with_payload: bool = False,
     plane_mode: str = "trunk",
+    terminal_cost: Optional[Callable] = None,
+    with_command: bool = False,
+    u_ref_fn: Optional[Callable] = None,
+    anchor_w: float = 0.0,
 ):
     """Build ``solve(physics_state, mppi_state, generator=None, normals=None
-    [, payload]) -> (ctrl, mppi_state', stats)`` on ``device`` (CUDA unless
-    the caller names another).
+    [, payload][, command]) -> (ctrl, mppi_state', stats)`` on ``device``
+    (CUDA unless the caller names another).
 
     ``normals`` is the (K, H, nu) standard-normal draw before sigma,
     smoothing and clipping; when it is None the solve draws it with
@@ -94,169 +328,103 @@ def make_solver(
     origin that every rollout carries (K2): a float, or a one-element
     float32 tensor on the device.
 
+    With ``with_command=True`` the solve takes a trailing ``command`` (a
+    (c,) tensor, after the payload) passed to ``step_cost(state, ctrl,
+    prev_ctrl, command)`` (``costs.trot_cost_cmd``).  ``terminal_cost(state)``
+    adds a cost of each rollout's final state.  With ``u_ref_fn`` and
+    ``anchor_w > 0`` every plan pays ``anchor_w * sum_k ||u_k - u_ref(t +
+    k dt)||^2``, which keeps the expert from re-timing the gait against
+    the reference; ``u_ref_fn`` is ``(t)`` or, with ``with_command``,
+    ``(t, cmd)`` (``costs.ref_takes_cmd``), batch-first.
+
     A solve copies no host data to the device and reads nothing back, so
     :func:`graph_solve` can capture it in a CUDA graph."""
-    if config.engine not in ENGINES:
-        raise ValueError(f"engine must be one of {ENGINES} (the JAX "
-                         "package's 'pallas' and 'xla'), got "
-                         f"{config.engine!r}")
-    if with_payload and config.engine != "kernel":
-        raise ValueError("payload-aware solves ride the substep kernel's "
-                         "payload rows: with_payload=True needs "
-                         "engine='kernel'")
-    if plane_mode not in PLANE_MODES:
-        raise ValueError(f"plane_mode must be one of {PLANE_MODES}, got "
-                         f"{plane_mode!r}")
-    device = resolve_device(device)
-    use_full_fp32()
-    model = model.to(device)
-    ctrlrange = model.actuator_ctrlrange
-    lo, hi = ctrlrange[:, 0], ctrlrange[:, 1]
+    core, device = _make_core(model, step_cost, config, device, terrain,
+                              with_payload, plane_mode, terminal_cost,
+                              with_command, u_ref_fn, anchor_w)
     H, K, nu = config.horizon, config.num_samples, model.nu
-    dt = float(config.rollout_dt) if config.rollout_dt else model.timestep
-    dt_tick = dt * config.n_substeps
-    if terrain is not None:
-        terrain = terrain.to(device)
-    if config.engine == "kernel":
-        with_plane = (False if terrain is None
-                      else "per_geom" if plane_mode == "per_geom" else True)
-        psub = build_cuda_substep(model, dt, n_substeps=config.n_substeps,
-                                  device=device, with_plane=with_plane,
-                                  with_payload=with_payload)
-    else:
-        rollout_model = model.replace(timestep=dt)
-
-    def _local_plane(state: State, k: int) -> torch.Tensor:
-        """Contact plane rows of the rollouts: the terrain's tangent
-        plane(s) under the solve-from state.  ``"trunk"``: (4, k), one
-        plane at the trunk's xy shared by every geom; ``"per_geom"``:
-        (4 * ngeom, k), each geom's own plane."""
-        if plane_mode == "per_geom":
-            planes = dynamics.geom_local_planes(model, terrain, state.qpos)
-            row = planes.reshape(-1)  # (ngeom, 4) row-major: 4g..4g+3
-        else:
-            h, n = dynamics._terrain_height_normal(model, terrain,
-                                                   state.qpos[None, :2])
-            n = n[0]
-            p0 = torch.stack([state.qpos[0], state.qpos[1], h[0]])
-            row = torch.cat([n, torch.dot(n, p0)[None]])  # (4,)
-        return row[:, None].expand(row.shape[0], k).contiguous()
-
-    def rollout_costs_kernel(state: State, candidates: torch.Tensor,
-                             payload=None) -> torch.Tensor:
-        """(K,) total cost of every candidate plan: carry in the (rows, K)
-        layout, one kernel launch per control step."""
-        k = candidates.shape[0]
-        qp = state.qpos[:, None].expand(model.nq, k).contiguous()
-        qv = state.qvel[:, None].expand(model.nv, k).contiguous()
-        ctrl_rows = candidates.permute(1, 2, 0).contiguous()  # (H, nu, k)
-        extra = {}
-        if terrain is not None:
-            extra["plane"] = _local_plane(state, k)
-        if with_payload:
-            extra["payload"] = payload.reshape(1, 1).expand(1, k).contiguous()
-        prev_ctrl = candidates[:, 0]
-        t = state.time
-        disc = 1.0
-        total = None
-        for h in range(H):
-            ctrl = candidates[:, h]
-            qp, qv = psub(qp, qv, ctrl_rows[h], **extra)
-            t = t + dt_tick
-            st = State(qpos=qp.T, qvel=qv.T, time=t.expand(k))
-            c = step_cost(st, ctrl, prev_ctrl) * disc
-            total = c if total is None else total + c
-            prev_ctrl = ctrl
-            disc = disc * config.gamma
-        return total
-
-    def rollout_costs_ops(state: State, candidates: torch.Tensor,
-                          payload=None) -> torch.Tensor:
-        """(K,) total cost of every candidate plan: the op-graph step over
-        all K rollouts at once, one call per control step (the JAX
-        package's vmapped ``rollout_cost``)."""
-        k = candidates.shape[0]
-        st = State(qpos=state.qpos.expand(k, model.nq),
-                   qvel=state.qvel.expand(k, model.nv),
-                   time=state.time.expand(k))
-        prev_ctrl = candidates[:, 0]
-        disc = 1.0
-        total = None
-        for h in range(H):
-            ctrl = candidates[:, h]
-            st, _ = dynamics.step(rollout_model, st, ctrl, terrain,
-                                  n_substeps=config.n_substeps)
-            c = step_cost(st, ctrl, prev_ctrl) * disc
-            total = c if total is None else total + c
-            prev_ctrl = ctrl
-            disc = disc * config.gamma
-        return total
-
-    rollout_costs = (rollout_costs_kernel if config.engine == "kernel"
-                     else rollout_costs_ops)
-
-    def sample_candidates(nominal: torch.Tensor,
-                          normals: torch.Tensor) -> torch.Tensor:
-        """(K, H, nu) clipped candidate plans.  Colored (low-pass)
-        exploration noise keeps the position servos from chattering."""
-        e = normals * config.noise_sigma
-        c = torch.zeros_like(e[:, 0])
-        eps = []
-        for h in range(H):
-            c = config.smooth_alpha * c + (1 - config.smooth_alpha) * e[:, h]
-            eps.append(c)
-        eps = torch.stack(eps, dim=1)
-        return torch.clamp(nominal[None] + eps, lo, hi)
-
-    def weighted_update(candidates, costs):
-        beta = torch.min(costs)
-        w_un = torch.exp(-(costs - beta) / config.temperature)
-        denom = torch.sum(w_un)
-        new_nominal = torch.einsum("k,khu->hu", w_un, candidates) / denom
-        stats = dict(
-            best_cost=beta,
-            mean_cost=torch.sum(costs) / K,
-            # effective sample size of the normalised weights
-            ess=torch.square(denom) / torch.sum(torch.square(w_un)),
-        )
-        return new_nominal, stats
 
     def solve(state: State, mppi: MPPIState,
               generator: Optional[torch.Generator] = None,
               normals: Optional[torch.Tensor] = None, *aux):
-        if len(aux) != int(with_payload):
-            raise ValueError(
-                f"solver built with_payload={with_payload}: expected "
-                f"{int(with_payload)} trailing args (payload), got {len(aux)}")
-        payload = aux[0] if with_payload else None
-        if with_payload and not torch.is_tensor(payload):
-            # a fill, not a copy of host data: a graph can capture it
-            payload = torch.full((), float(payload), dtype=torch.float32,
-                                 device=device)
+        payload, command = _trailing(aux, with_payload, with_command, 1,
+                                     device)
         if normals is None:
             normals = torch.randn((K, H, nu), generator=generator,
                                   device=device, dtype=torch.float32)
         elif normals.shape != (K, H, nu):
             raise ValueError(f"normals must have shape {(K, H, nu)}, got "
                              f"{tuple(normals.shape)}")
-        candidates = sample_candidates(mppi.nominal, normals)
-        costs = rollout_costs(state, candidates, payload)
-        # diverged rollouts must not poison the softmax: treat non-finite
-        # costs as very bad, not NaN
-        costs = torch.where(torch.isfinite(costs), costs,
-                            torch.full_like(costs, 1e9))
-        new_nominal, stats = weighted_update(candidates, costs)
-        ctrl = new_nominal[0]
-        # receding horizon: shift, repeat last
-        shifted = torch.cat([new_nominal[1:], new_nominal[-1:]], dim=0)
-        return ctrl, MPPIState(nominal=shifted), stats
+        ctrl, nominal, stats = core(
+            state.qpos[None], state.qvel[None], state.time.reshape(1),
+            mppi.nominal[None], normals[None], payload, command)
+        return (ctrl[0], MPPIState(nominal=nominal[0]),
+                {k: v[0] for k, v in stats.items()})
+
+    return solve
+
+
+def make_batched_solver(
+    model,
+    step_cost: Callable,
+    config: MPPIConfig = MPPIConfig(),
+    scenarios: int = 1,
+    device=None,
+    terrain: Optional[Terrain] = None,
+    with_payload: bool = False,
+    plane_mode: str = "trunk",
+    terminal_cost: Optional[Callable] = None,
+    with_command: bool = False,
+    u_ref_fn: Optional[Callable] = None,
+    anchor_w: float = 0.0,
+):
+    """The counterpart of ``jax.vmap(solve)`` over ``scenarios`` = S:
+    ``solve(physics_states, mppi_states, generator=None, normals=None
+    [, payloads][, commands]) -> (ctrls (S, nu), mppi_states', stats)``.
+
+    States carry a leading S axis (``qpos`` (S, nq), ``time`` (S,)), as do
+    the nominals (S, H, nu), ``payloads`` (S,) (or one float for all) and
+    ``commands`` (S, c); ``normals`` is (S, K, H, nu).  Each rollout step
+    is one kernel launch over S K lanes, scenario s on lanes ``[s K, (s +
+    1) K)``; ``best_cost``, ``mean_cost`` and ``ess`` are (S,), each
+    reduced over its scenario's K lanes.  Per scenario it computes what
+    :func:`make_solver`'s solve computes on the same normals.  The options
+    are :func:`make_solver`'s."""
+    if scenarios < 1:
+        raise ValueError(f"scenarios must be >= 1, got {scenarios}")
+    core, device = _make_core(model, step_cost, config, device, terrain,
+                              with_payload, plane_mode, terminal_cost,
+                              with_command, u_ref_fn, anchor_w)
+    S, H, K, nu = scenarios, config.horizon, config.num_samples, model.nu
+
+    def solve(states: State, mppi: MPPIState,
+              generator: Optional[torch.Generator] = None,
+              normals: Optional[torch.Tensor] = None, *aux):
+        if states.qpos.shape[0] != S or mppi.nominal.shape != (S, H, nu):
+            raise ValueError(
+                f"expected {S} scenarios: qpos (S, nq) and nominal "
+                f"{(S, H, nu)}, got {tuple(states.qpos.shape)} and "
+                f"{tuple(mppi.nominal.shape)}")
+        payload, command = _trailing(aux, with_payload, with_command, S,
+                                     device)
+        if normals is None:
+            normals = torch.randn((S, K, H, nu), generator=generator,
+                                  device=device, dtype=torch.float32)
+        elif normals.shape != (S, K, H, nu):
+            raise ValueError(f"normals must have shape {(S, K, H, nu)}, "
+                             f"got {tuple(normals.shape)}")
+        ctrl, nominal, stats = core(states.qpos, states.qvel,
+                                    states.time.reshape(S), mppi.nominal,
+                                    normals, payload, command)
+        return ctrl, MPPIState(nominal=nominal), stats
 
     return solve
 
 
 def graph_solve(solve: Callable, state: State, mppi_state: MPPIState,
                 normals: torch.Tensor, *aux):
-    """``solve`` (of :func:`make_solver`) captured in a CUDA graph
+    """``solve`` (of :func:`make_solver`, or of :func:`make_batched_solver`
+    with batched example inputs) captured in a CUDA graph
     (:class:`~.graph.GraphedTick`) from these example inputs, on the device
     of ``normals``: returns ``gsolve(state, mppi_state, generator=None,
     normals=None, *aux) -> (ctrl, mppi_state', stats)``, which computes what

@@ -10,6 +10,8 @@ This file imports neither JAX nor the JAX package, so that it runs on the
 GPU machine, where the repository's conftest.py (which imports JAX) is left
 out:  python -m pytest --noconftest -o addopts="" -q -m gpu tests/test_torch_gpu.py
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -563,3 +565,138 @@ def test_graph_associative_solve_at_bench_horizon(cuda_device):
     for k in out[0]:
         assert torch.equal(out[0][k], out[1][k]), k
     assert float(out[0]["cost"]) < float(out[0]["initial_cost"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_payload", [False, True])
+@pytest.mark.parametrize("K,dt,n", [(4096, 0.01, 2), (8, 0.002, 10)])
+def test_distill_kernel_shapes_match_plain_on_card(cuda_device, K, dt, n,
+                                                   with_payload):
+    """K1 and K2 at the distiller's shapes: the batched expert over S x K =
+    8 x 512 lanes at 2 x 10 ms, and the 8-scenario plant at 10 x 2 ms;
+    equal to the plain version exactly."""
+    m = load_go1("flat", device=cuda_device)
+    qp, qv, ct = _random_rows(m, K, cuda_device)
+    extra = {}
+    if with_payload:
+        extra["payload"] = torch.from_numpy(
+            random_modes(m, K, False, True)[1]).to(cuda_device)
+    kp, kv = cuda_step.build_cuda_substep(
+        m, dt, n, device=cuda_device, with_payload=with_payload)(
+            qp, qv, ct, **extra)
+    pp, pv = cuda_step.build_plain_substep(m, dt, n, False, with_payload)(
+        qp, qv, ct, **extra)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kp).all() and torch.isfinite(kv).all()
+    assert torch.equal(kp, pp) and torch.equal(kv, pv)
+
+
+def _cmd_expert(cuda_device, K, H):
+    """Go1's command setup with a smaller expert (the distiller's options:
+    trot_cost_cmd, anchored to trot_gait_ref_cmd with anchor_w 15)."""
+    from opendog_tpu_torch.rl.distill_zoo import cmd_distill_setup
+    from opendog_tpu_torch.solvers import MPPIConfig
+    setup = cmd_distill_setup("go1", engine="kernel", device=cuda_device)
+    cfg = MPPIConfig(horizon=H, num_samples=K, n_substeps=2, rollout_dt=0.01,
+                     noise_sigma=0.10, temperature=0.2)
+    return setup._replace(mppi_config=cfg)
+
+
+@pytest.mark.gpu
+def test_graph_batched_solve_equals_eager(cuda_device):
+    """The batched solver (S=3 scenarios of K=43: 129 lanes, a ragged last
+    block) with payloads, commands and the anchor, replayed from a CUDA
+    graph by graph_solve, equals the eager solve bit for bit on the same
+    normals; one launch over all lanes per rollout step."""
+    from opendog_tpu_torch.physics import State, make_state
+    from opendog_tpu_torch.solvers import graph_solve, mppi
+    S = 3
+    setup = _cmd_expert(cuda_device, 43, 5)
+    m, cfg = setup.model, setup.mppi_config
+    solve = mppi.make_batched_solver(
+        m, setup.cost, cfg, scenarios=S, device=cuda_device,
+        with_payload=True, with_command=True, u_ref_fn=setup.u_ref,
+        anchor_w=15.0)
+    st = make_state(m, "home")
+    states = State(qpos=st.qpos[None].repeat(S, 1),
+                   qvel=torch.zeros(S, m.nv, device=cuda_device),
+                   time=torch.tensor([0.0, 0.13, 0.37], device=cuda_device))
+    payload = torch.tensor([0.0, 0.7, 1.4], device=cuda_device)
+    cmds = torch.tensor([[0.5, 0.0, 0.0], [0.0, 0.0, 0.5],
+                         [0.3, 0.0, -0.4]], device=cuda_device)
+    ms0 = mppi.init_state(m, cfg, scenarios=S)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    normals = torch.randn((3, S, cfg.num_samples, cfg.horizon, m.nu),
+                          generator=gen, device=cuda_device)
+    gsolve = graph_solve(solve, states, ms0, normals[0], payload, cmds)
+    assert dict(gsolve.graph.launches) == {
+        cuda_step.launch_key(S * cfg.num_samples, 2, False, True):
+        cfg.horizon}
+    ms_e = ms_g = ms0
+    for n in normals:
+        ce, ms_e, se = solve(states, ms_e, None, n, payload, cmds)
+        cg, ms_g, sg = gsolve(states, ms_g, None, n, payload, cmds)
+        assert torch.equal(ce, cg)
+        assert torch.equal(ms_e.nominal, ms_g.nominal)
+        for k in se:
+            assert torch.equal(se[k], sg[k]), k
+        ms_g = mppi.MPPIState(nominal=ms_g.nominal.clone())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("payload", [False, True])
+def test_graph_collect_tick_equals_eager(cuda_device, payload):
+    """The distiller's collect tick (batched expert, student, mix, label,
+    plant) replayed from one CUDA graph equals the eager tick bit for bit
+    on the same injected normals and drive masks; 5 + 1 launches per
+    tick."""
+    from opendog_tpu_torch.physics import State, make_state
+    from opendog_tpu_torch.rl.distill import DistillConfig, make_distiller
+    from opendog_tpu_torch.solvers import mppi
+    S, T = 4, 3
+    setup = _cmd_expert(cuda_device, 32, 5)
+    m, cfg = setup.model, setup.mppi_config
+    dcfg = DistillConfig(num_scenarios=S, rollout_ticks=T, lr=1e-3,
+                         batch_size=8, epochs_per_round=1)
+    kw = dict(plant_substeps=10, action_ref_fn=setup.u_ref,
+              with_prev_ctrl=True, command_dim=3, anchor_w=15.0,
+              payload_range=(0.0, 1.5) if payload else None,
+              device=cuda_device)
+    st = make_state(m, "home")
+    plants = State(qpos=st.qpos[None].repeat(S, 1),
+                   qvel=torch.zeros(S, m.nv, device=cuda_device),
+                   time=torch.zeros(S, device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    normals = torch.randn((T, S, cfg.num_samples, cfg.horizon, m.nu),
+                          generator=gen, device=cuda_device)
+    drive = torch.rand((T, S, 1), generator=gen, device=cuda_device) < 0.5
+    cmds = torch.tensor([[0.5, 0.0, 0.0], [0.0, 0.0, 0.0], [0.3, 0.0, 0.4],
+                         [0.25, 0.0, 0.0]], device=cuda_device)
+    aux = dict(commands=cmds)
+    if payload:
+        aux["payloads"] = torch.tensor([0.0, 0.5, 1.0, 1.5],
+                                       device=cuda_device)
+    out, params = {}, None
+    for graphs in (True, False):
+        d = make_distiller(m, setup.cost, setup.obs_fn, setup.net, cfg,
+                           dcfg, graphs=graphs, **kw)
+        dstate = d.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        st, params=params)
+        params = dstate.params
+        for _ in range(2):  # the first graph call captures
+            trace = {}
+            before = collections.Counter(cuda_step.LAUNCHES)
+            p2, ms2, _, obs, labels = d.collect(
+                dstate, plants, mppi.init_state(m, cfg, scenarios=S), 0.5,
+                normals=normals, drive=drive, trace=trace, **aux)
+            torch.cuda.synchronize()
+            launched = cuda_step.LAUNCHES - before
+        assert dict(launched) == {
+            cuda_step.launch_key(S * cfg.num_samples, 2, False, payload):
+            cfg.horizon * T,
+            cuda_step.launch_key(S, 10, False, payload): T}
+        out[graphs] = dict(obs=obs, labels=labels, qpos=p2.qpos,
+                           qvel=p2.qvel, nominal=ms2.nominal,
+                           **{f"trace_{k}": v for k, v in trace.items()})
+    for k in out[True]:
+        assert torch.equal(out[True][k], out[False][k]), k
