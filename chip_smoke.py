@@ -29,15 +29,16 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc: the tick captured in a CUDA graph (graph_tick) must
              equal the eager tick bit for bit on the same injected normals
-             for 4 ticks (ctrl, qpos, qvel, nominal); then 250 ticks eager
-             and 250 replayed, each from generator seed 0: trunk in (0.12,
+             for 4 ticks (ctrl, qpos, qvel, nominal); then 150 ticks eager
+             and 150 replayed (250 before the PPO phases), each from generator seed 0: trunk in (0.12,
              0.5) m, finite, forward more than 0.5 m, 25 + 1 flat launches
              per tick (counted per replay on the graph), ms/tick of both
              side by side;
   terrain  - OpenDOG terrain MPC with per-geom planes on both sides (bench
              2c_pergeom: K=256, H=25, 2 x 10 ms, sigma 0.08; per-geom
              kernel plant) on a generated terrain, eager and graph as in
-             main, 100 ticks each: finite, trunk above the ground under it
+             main, 50 ticks each (100 before the PPO phases): finite,
+             trunk above the ground under it
              in (0.03, 0.21) m at every tick and in (0.03, 0.15) m once the
              drop from the keyframe is over, 25 + 1 pergeom launches per
              tick;
@@ -50,8 +51,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              qvel);
   exact-terrain - bench 2c: the terrain loop with one trunk plane for the
              rollouts and the default exact plant (the op-graph step with
-             bilinear contact, 10 x 2 ms), eager and graph as in main, 100
-             ticks each, the height bands of terrain, 25 plane launches and
+             bilinear contact, 10 x 2 ms), eager and graph as in main, as
+             many ticks as terrain, the height bands of terrain, 25 plane launches and
              no plant kernel launch per tick; then terrain's deviation
              check: final_dev_vs_exact_plant_m, the distance between the
              trunk positions that the per-geom kernel-plant loop and this
@@ -100,14 +101,14 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
   realtime - bench.py:104-156 on the port: 50 graph ticks with a blocking
              copy of the control (the blocking reference), lag = min(5,
              max(1, ceil(median / 20 ms) + 1)), then RealtimeController in
-             benchmark mode primed lag + 3 ticks and paced at 20 ms for 250
-             ticks; prints bench.py's host-loop fields (p99 / median / max
+             benchmark mode primed lag + 3 ticks and paced at 20 ms for 150
+             ticks (bench.py: 250); prints bench.py's host-loop fields (p99 / median / max
              / mean host-blocking ms, meets_50hz_budget, overruns, control
              delay, blocking p99 and median); every control finite and in
              ctrlrange, the internal plant's trunk z in (0.12, 0.5) m and
              forward more than 0.5 m, 25 + 1 flat launches per replay;
   bridge   - RealtimeController in bridge mode with delay compensation at
-             that lag, 250 ticks paced at 20 ms against a stand-in robot
+             that lag, 150 ticks paced at 20 ms against a stand-in robot
              (the flat plant step on the card, read to the host before
              each tick, applying each returned control): the same fields
              and gates, 25 rollout + lag + 1 plant launches per tick;
@@ -145,10 +146,33 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the command student on its 0.5 m/s command, every command
              upright); prints mean_vx per command beside the artifact's
              record (400 ticks on the JAX package's plant, not a target);
+  ppo-graph - PPO training (train.py's path; the envs step on the
+             op-graph physics, no substep kernel): one chunk's rollout of
+             walk, sym and terrain at 16 envs, eager and with the rollout
+             step (policy, sample, env step, the reset of every env, the
+             autoreset merge, the trajectory write) replayed from its CUDA
+             graph, from the same state on the same draws: every trajectory
+             buffer, env state field and observation equal bit for bit
+             over 4 steps; eager ms per step;
+  ppo-walk - train("walk") at runs/walk_1's configuration, the CLI
+             defaults (16 envs x 128 steps, minibatch 512, 10 epochs,
+             64-64, clip): 3 chunks and a 500-step eval; replayed ms per
+             rollout step, s per update, env-steps/s, peak memory; gates:
+             finite metrics, update_count 3, the parameters moved;
+  ppo-walk-1024 - one chunk of the same at 1024 envs;
+  ppo-tasks - one chunk each of turn, jump, landing, sym (512-256) and
+             terrain (1024-512) at their TASKS widths, 16 envs, n_steps
+             cut to 32 (the CLI: 128); sym exports its walk json;
+  ppo-policy - the committed runs/walk_1 policy (best/970, the .npz of
+             rl/policies/) in a 500-step eval on the card, replayed from a
+             graph of one step: upright for at least 250 steps and more
+             than 0.5 m forward; prints episode_return, episode_len,
+             forward_x;
   profile  - torch.profiler over 10 ticks of the flat, terrain and
              exact-terrain loops, eager and graph;
   timing   - CUDA-event times of every kernel at each of its path shapes,
-             beside its plain version and its bound.
+             beside its plain version (one call; the check phase's call is
+             its warm-up) and its bound.
 The last lines are the wall time, the card's name and power limit, one JSON
 object of kernel records, and {"ok": true, "device": {...}}.
 """
@@ -161,8 +185,10 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-TICKS = 250            # flat trot loop
-TERRAIN_TICKS = 100    # per-geom terrain MPC
+# depths cut to keep the script inside 600 s with the PPO phases (the flat
+# and paced loops ran 250 ticks before them, the terrain loops 100)
+TICKS = 150            # flat trot loop
+TERRAIN_TICKS = 50     # per-geom terrain MPC
 TRUNK_TICKS = 50       # trunk-plane terrain MPC
 EXACT_TICKS = TERRAIN_TICKS  # exact-plant terrain MPC, as many as terrain
 OPS_SOLVES = 5         # op-graph MPPI solves a side
@@ -175,7 +201,7 @@ PERGEOM_PAYLOAD_KG = 0.5
 BATCH_STEPS = 20
 EQ_STEPS = 4           # graph vs eager calls on the same normals, per path
 SYNC_TICKS = 50        # [realtime] blocking reference ticks (bench.py's n2)
-RT_TICKS = 250         # [realtime] paced ticks (bench.py's n)
+RT_TICKS = 150         # [realtime] paced ticks (bench.py's n: 250)
 TICK_S = 0.02          # the 50 Hz tick period
 # a control is the softmax-weighted mean of plans clipped into ctrlrange;
 # float32 rounding of that mean may put it an ulp or so outside
@@ -201,7 +227,8 @@ BATCH = dict(K=4096, dt=0.002, n=10)
 # [ilqr] and [ilqr-trot] (bench 3 and 3b, scripts/bench_suite.py:305-394):
 # full width, cut in cycles only
 ILQR_CYCLES = 2        # timed graph cycles of bench 3 after the capture cycle
-TROT_CYCLES = 4        # timed graph cycles of bench 3b (the bench: 10)
+TROT_CYCLES = 2        # timed graph cycles of bench 3b (the bench: 10; cut
+                       # from 4 to make room for the PPO phases)
 ILQR_Z_BAND = (0.15, 0.4)  # bench 3's healthy trunk z after a cycle
 TROT_Z_MIN = 0.12          # bench 3b's healthy: min trunk z over all ticks
 TROT_Z_LAST = (0.18, 0.4)  # and the mean over the last cycle
@@ -217,6 +244,19 @@ PAYLOAD_DISTILL = dict(ticks=20, payload_hi=1.5)
 BENCH5 = dict(S=8, K=64, H=10, ticks=50, eval_ticks=100)
 BENCH5_EXPERT = dict(K=8 * 64, dt=0.01, n=2)
 STUDENT_TICKS = 100
+# PPO training (train.py's path): the CLI defaults are runs/walk_1's
+# configuration (16 envs x 128 steps, minibatch 512, 10 epochs, 64-64)
+PPO_EQ_STEPS = 4           # graph vs eager rollout steps on the same draws
+PPO_EQ_TASKS = ("walk", "sym", "terrain")
+PPO_WALK = dict(n_envs=16, n_steps=128, minibatch_size=512, num_epochs=10)
+PPO_WALK_CHUNKS = 3
+PPO_WIDE_ENVS = 1024       # the batch the JAX PPO is written for
+PPO_TASKS = ("turn", "jump", "landing", "sym", "terrain")
+PPO_TASK_STEPS = 32        # [ppo-tasks] n_steps (the CLI: 128)
+PPO_EVAL_STEPS = 500
+POLICY_MIN_STEPS = 250     # the committed walk policy stays upright so long
+POLICY_MIN_X = 0.5         # and goes so far forward [m]
+PPO_OUT = os.path.join(ROOT, "runs", "torch_smoke")   # gitignored
 STUDENT_MIN_X = 0.15       # tests/test_distill.py's forward gate [m]
 
 
@@ -282,10 +322,12 @@ def random_modes(model, K, with_plane=False, with_payload=False, seed=1):
     return plane, payload
 
 
-def event_ms(torch, fn, reps):
+def event_ms(torch, fn, reps, warm_up=True):
     """Mean milliseconds of fn() over reps calls, timed with CUDA events
-    after one warm-up call."""
-    fn()
+    after one warm-up call (``warm_up=False``: fn ran before, as the plain
+    versions did in the check phase)."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1693,6 +1735,156 @@ class Smoke:
             out[run] = rec
         return out
 
+    # -- PPO training ---------------------------------------------------
+    def ppo_graph(self):
+        """[ppo-graph]: the rollout step replayed from its CUDA graph equals
+        the eager step bit for bit for PPO_EQ_STEPS steps on the same draws,
+        for walk, sym and terrain at 16 envs; eager ms per step."""
+        out = {}
+        for task in PPO_EQ_TASKS:
+            pair = ppo_rollout_pair(self.torch, self.dev, task,
+                                    PPO_WALK["n_envs"], PPO_EQ_STEPS)
+            bad, n = ppo_pair_differences(self.torch, pair)
+            if bad:
+                raise RuntimeError(f"[ppo-graph] {task}: graph != eager in "
+                                   f"{bad}")
+            ms = pair[False]["rollout_s"] / PPO_EQ_STEPS * 1e3
+            out[task] = dict(eager_ms_per_step=ms, fields_equal=n)
+            log(f"[ppo-graph] {task}: {n} fields (trajectory, env state, "
+                f"observations) equal bit for bit over {PPO_EQ_STEPS} steps "
+                f"x {PPO_WALK['n_envs']} envs; eager {ms:.3f} ms per step "
+                f"(the graph side includes its capture: "
+                f"{pair[True]['rollout_s']:.3f} s)")
+        return out
+
+    def ppo_train(self, label, task, chunks, eval_steps=0, save_interval=0,
+                  **kw):
+        """``train(task)`` on the card through the CLI's entry point, from
+        a fresh run directory: per-chunk rollout / update seconds and
+        env-steps/s from its metrics, peak memory; gates: finite metrics,
+        ``update_count == chunks``, the parameters moved."""
+        torch, dev = self.torch, self.dev
+        import shutil
+        from opendog_tpu_torch.rl.ppo import PPOConfig, make_ppo
+        from opendog_tpu_torch.train import TASKS, build, train
+        out_dir = os.path.join(PPO_OUT, label)
+        run = os.path.join(out_dir, f"{task}_0")
+        shutil.rmtree(run, ignore_errors=True)
+        cfg = dict(PPO_WALK, **kw)
+        _, env, net = build(task, dev)
+        init, _ = make_ppo(env, net, PPOConfig(
+            num_envs=cfg["n_envs"], loss=TASKS[task]["loss"]), dev,
+            graphs=False)
+        p0 = init(torch.Generator(device=dev).manual_seed(0)).params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state = train(task, total_chunks=chunks, out_dir=out_dir, seed=0,
+                      save_interval=save_interval or chunks,
+                      eval_interval=chunks if eval_steps else 0,
+                      video_interval=0, eval_steps=eval_steps or 1,
+                      device=dev, **cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        rows = read_metrics(run)
+        trains = [r for r in rows if "train/mean_reward" in r]
+        evals = [r for r in rows if "eval/episode_return" in r]
+        bad = [k for r in rows for k, v in r.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if bad or len(trains) != chunks:
+            raise RuntimeError(f"[{label}] metrics not finite {bad} or "
+                               f"{len(trains)} chunks")
+        if state.update_count != chunks:
+            raise RuntimeError(f"[{label}] update_count "
+                               f"{state.update_count}")
+        moved = max(float((state.params[k] - p0[k]).detach().abs().max())
+                    for k in p0)
+        if not moved > 0:
+            raise RuntimeError(f"[{label}] the parameters did not move")
+        T = cfg["n_steps"]
+        rec = dict(
+            task=task, n_envs=cfg["n_envs"], n_steps=T,
+            hidden=list(TASKS[task]["hidden"]), loss=TASKS[task]["loss"],
+            chunks=chunks, wall_s=wall, peak_mib=peak,
+            rollout_ms_per_step=[(r["train/rollout_s"]
+                                  - r["train/capture_s"]) / T * 1e3
+                                 for r in trains],
+            capture_s=trains[0]["train/capture_s"],
+            update_s=[r["train/update_s"] for r in trains],
+            steps_per_sec=[r["train/steps_per_sec"] for r in trains],
+            sum_reward_per_env=[r["train/sum_reward_per_env"]
+                                for r in trains],
+            params_moved=moved)
+        if evals:
+            rec["eval"] = {k.split("/")[1]: v for k, v in evals[-1].items()
+                           if k.startswith("eval/")}
+        log(f"[{label}] {task} {cfg['n_envs']} envs x {T} steps, "
+            f"{chunks} chunk(s) in {wall:.3f} s: replayed rollout ms/step "
+            f"{[round(v, 3) for v in rec['rollout_ms_per_step']]} (capture "
+            f"{rec['capture_s']:.3f} s, not counted), s/update "
+            f"{[round(v, 3) for v in rec['update_s']]}, env-steps/s "
+            f"{[round(v, 1) for v in rec['steps_per_sec']]}, peak "
+            f"{peak:.1f} MiB above the phase's start")
+        if evals:
+            log(f"[{label}] eval ({eval_steps} steps): {rec['eval']}")
+        return rec
+
+    def ppo_tasks(self):
+        out = {}
+        for task in PPO_TASKS:
+            out[task] = self.ppo_train("ppo-tasks", task, 1,
+                                       n_steps=PPO_TASK_STEPS,
+                                       save_interval=1)
+        sym = os.path.join(PPO_OUT, "ppo-tasks", "sym_0",
+                           "walk_rl_sym_ep1.json")
+        with open(sym) as f:
+            n = len(json.load(f))
+        if not n:
+            raise RuntimeError("[ppo-tasks] sym exported an empty walk json")
+        log(f"[ppo-tasks] sym exported {sym} ({n} steps)")
+        out["sym"]["walk_json_steps"] = n
+        return out
+
+    def ppo_policy(self):
+        """[ppo-policy]: the committed runs/walk_1 policy (best/970, as
+        the .npz of rl/policies/) in a 500-step eval on the card."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.rl.evaluate import make_eval
+        from opendog_tpu_torch.rl.networks import (COMMITTED_WALK_POLICY,
+                                                   load_flax_params,
+                                                   read_npz_tree)
+        from opendog_tpu_torch.train import build
+        _, env, net = build("walk", dev)
+        load_flax_params(net, read_npz_tree(COMMITTED_WALK_POLICY))
+        eval_fn = make_eval(env, net, PPO_EVAL_STEPS, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        metrics, _ = eval_fn(None, env.draw_reset(gen, 1))
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics, _ = eval_fn(None, env.draw_reset(gen, 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {k: float(v) for k, v in metrics.items()}
+        rec.update(ms_per_step=wall / PPO_EVAL_STEPS * 1e3,
+                   first_call_s=first)
+        log(f"[ppo-policy] runs/walk_1 best/970: episode_return "
+            f"{rec['episode_return']:.3f}, episode_len "
+            f"{rec['episode_len']:.0f}, forward_x {rec['forward_x']:.4f} m "
+            f"in {PPO_EVAL_STEPS} steps; {rec['ms_per_step']:.3f} ms per "
+            f"replayed eval step (the first call with its capture "
+            f"{first:.3f} s); the artifact's record: 2.04 m on the JAX "
+            "package's plant (not a target)")
+        upright = rec["episode_len"] >= POLICY_MIN_STEPS
+        if not (upright and rec["forward_x"] > POLICY_MIN_X):
+            raise RuntimeError(f"[ppo-policy] {rec}: needs >= "
+                               f"{POLICY_MIN_STEPS} upright steps and more "
+                               f"than {POLICY_MIN_X} m")
+        return rec
+
     # -- profile ----------------------------------------------------------
     def profile(self, label, tick, carry, n=10):
         """Device busy share and kernel time by name over ``n`` ticks.  Only
@@ -1820,7 +2012,9 @@ class Smoke:
             args = rec["args"]
             ms = event_ms(torch, lambda: rec["kern"](*args),
                           200 if n * K < 20000 else 50)
-            plain_ms = event_ms(torch, lambda: rec["plain"](*args), 1)
+            # the check phase's call of the plain version was its warm-up
+            plain_ms = event_ms(torch, lambda: rec["plain"](*args), 1,
+                                warm_up=False)
             ops = scalar_core.count_substep_ops(
                 model, shape["dt"], *rec["modes"]) * K * n
             nbytes = 4 * sum(a.numel() for a in args if a is not None) + 4 * K * (
@@ -1869,6 +2063,52 @@ def distill_script():
     return mod
 
 
+def ppo_rollout_pair(torch, dev, task, n_envs, n_steps, seed=0):
+    """One chunk of ``task`` (its TASKS network and loss; 1 epoch of one
+    minibatch) from the same initial state and the same draws, eager and
+    with the rollout step replayed from its CUDA graph.  Returns {graphs:
+    dict(traj, env_states, last_obs, rollout_s)}."""
+    from opendog_tpu_torch.rl.ppo import (Hyper, PPOConfig, draw_chunk,
+                                          make_ppo)
+    from opendog_tpu_torch.train import TASKS, build
+    out = {}
+    for graphs in (False, True):
+        _, env, net = build(task, dev)
+        cfg = PPOConfig(num_envs=n_envs, n_steps=n_steps, num_epochs=1,
+                        minibatch_size=n_envs * n_steps,
+                        loss=TASKS[task]["loss"])
+        init, chunk = make_ppo(env, net, cfg, dev, graphs=graphs)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = init(gen)
+        draws = draw_chunk(env, cfg, gen, dev)
+        state, _ = chunk(state, Hyper(lr=1e-4, ent_coef=0.002), draws)
+        out[graphs] = dict(
+            traj={k: v.clone() for k, v in chunk.rollout.traj.items()},
+            env_states=state.env_states, last_obs=state.last_obs,
+            rollout_s=chunk.times["rollout_s"])
+    return out
+
+
+def ppo_pair_differences(torch, pair):
+    """Fields of the eager and graph rollouts of ``ppo_rollout_pair`` that
+    are not equal bit for bit (every trajectory buffer, every env state
+    field, the last observations), and the number compared."""
+    from opendog_tpu_torch.envs.base import tree_leaves
+    eager, graph = pair[False], pair[True]
+    items = [(f"traj.{k}", v, graph["traj"][k])
+             for k, v in eager["traj"].items()]
+    items += [(f"env_state[{i}]", a, b) for i, (a, b) in enumerate(zip(
+        tree_leaves(eager["env_states"]), tree_leaves(graph["env_states"])))]
+    items.append(("last_obs", eager["last_obs"], graph["last_obs"]))
+    bad = [k for k, a, b in items if not torch.equal(a, b)]
+    return bad, len(items)
+
+
+def read_metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 def loop_fields(lat, overruns, lag):
     """bench.py's host-loop fields of a paced loop's blocking times [s]."""
     p99 = float(np.percentile(lat, 99) * 1e3)
@@ -1906,7 +2146,24 @@ def occupancy(lib, cs, smoke):
                                f"occupancy {blocks}")
 
 
-def main():
+def ppo_phases(smoke):
+    """The PPO training phases (train.py's path), in order."""
+    return dict(graph=smoke.ppo_graph(),
+                walk=smoke.ppo_train("ppo-walk", "walk", PPO_WALK_CHUNKS,
+                                     eval_steps=PPO_EVAL_STEPS),
+                walk_1024=smoke.ppo_train("ppo-walk-1024", "walk", 1,
+                                          n_envs=PPO_WIDE_ENVS),
+                tasks=smoke.ppo_tasks(),
+                policy=smoke.ppo_policy())
+
+
+def main(argv=None):
+    """``--only ppo`` runs the device phase and the PPO phases alone (a
+    development aid: no kernel is built or checked, no "ok" line)."""
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument("--only", choices=["ppo"], default=None)
+    args = p.parse_args(argv)
     start = time.perf_counter()
     import torch
 
@@ -1923,6 +2180,13 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if args.only == "ppo":
+        ppo = ppo_phases(Smoke(torch, dev))
+        log("[summary] ppo: " + json.dumps(ppo))
+        log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
+        log(smi)
+        return 0
 
     # ---- build ----
     lib, built = cuda_step.cuda_library()
@@ -1959,6 +2223,7 @@ def main():
                                     PAYLOAD_DISTILL["ticks"], 0)
     bench5 = smoke.bench5()
     students = smoke.students()
+    ppo = ppo_phases(smoke)
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
@@ -1983,6 +2248,7 @@ def main():
     log("[summary] student: " + json.dumps(
         {run: {k: v for k, v in rec.items() if k != "per_command"}
          for run, rec in students.items()}))
+    log("[summary] ppo: " + json.dumps(ppo))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

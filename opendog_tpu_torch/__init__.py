@@ -6,8 +6,10 @@ payload-aware MPPI: the MJCF models, the op-graph Featherstone step and
 terrain (:mod:`.physics`, :mod:`.assets`), the fused physics substep as
 CUDA kernels in each of its modes with their plain PyTorch version
 (:mod:`.ops`, ``csrc/``) and the MPPI / MPC solvers with their costs,
-on the kernel or on the op-graph step (:mod:`.solvers`).  Entry points run
-on CUDA unless the caller passes ``device="cpu"``.
+on the kernel or on the op-graph step (:mod:`.solvers`), and policy
+learning: distillation and PPO on the task envs (:mod:`.rl`,
+:mod:`.envs`, :mod:`.train`, :mod:`.eval`).  Entry points run on CUDA
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -493,13 +493,17 @@ def _terrain_height_normal(model: Model, terrain: Optional[Terrain],
                            xy: torch.Tensor):
     """Ground height and unit normal under world xy points (batched over the
     leading axes of ``xy``): bilinear in the heightfield, with the lookup
-    clipped to ``n - 1.001`` cells as in the JAX package."""
+    clipped to ``n - 1.001`` cells as in the JAX package.  A terrain of
+    one grid (nrow, ncol) lies under every point; a terrain of one grid
+    per env (B, nrow, ncol) lies under the points of env b =
+    ``xy[b, ...]`` (the JAX package's vmapped env, each with its own
+    terrain)."""
     if terrain is None:
         h = xy.new_zeros(xy.shape[:-1])
         n = torch.stack([h, h, torch.ones_like(h)], dim=-1)
         return h, n
     height = terrain.height
-    nrow, ncol = height.shape
+    nrow, ncol = height.shape[-2:]
     sx, sy = model.hfield_size[0], model.hfield_size[1]
     # grid spans [-sx, sx] x [-sy, sy]; row ~ y, col ~ x (MuJoCo layout)
     fx = (xy[..., 0] + sx) / (2 * sx) * (ncol - 1)
@@ -510,10 +514,19 @@ def _terrain_height_normal(model: Model, terrain: Optional[Terrain],
     y0 = torch.floor(fy).long()
     tx = fx - x0
     ty = fy - y0
-    h00 = height[y0, x0]
-    h01 = height[y0, x0 + 1]
-    h10 = height[y0 + 1, x0]
-    h11 = height[y0 + 1, x0 + 1]
+    if height.dim() == 2:
+        h00 = height[y0, x0]
+        h01 = height[y0, x0 + 1]
+        h10 = height[y0 + 1, x0]
+        h11 = height[y0 + 1, x0 + 1]
+    else:
+        per_env = height.reshape(height.shape[0], -1)
+        cell = (y0 * ncol + x0).reshape(height.shape[0], -1)
+
+        def at(offset):
+            return torch.gather(per_env, 1, cell + offset).reshape(y0.shape)
+
+        h00, h01, h10, h11 = at(0), at(1), at(ncol), at(ncol + 1)
     h = (
         h00 * (1 - tx) * (1 - ty)
         + h01 * tx * (1 - ty)

@@ -169,7 +169,7 @@ class Terrain:
     [-size_x, size_x] x [-size_y, size_y] of the model's ``hfield_size``;
     rows follow world y, columns world x."""
 
-    height: torch.Tensor  # (nrow, ncol) float32
+    height: torch.Tensor  # (nrow, ncol), or (B, nrow, ncol): one per env
 
     @staticmethod
     def flat(nrow: int = 2, ncol: int = 2, device=None) -> "Terrain":

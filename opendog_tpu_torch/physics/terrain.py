@@ -43,14 +43,17 @@ class TerrainDraws(NamedTuple):
 
 
 def draw_terrain(model: Model,
-                 generator: Optional[torch.Generator] = None) -> TerrainDraws:
-    """The random fields of one terrain, drawn with ``generator`` on its
+                 generator: Optional[torch.Generator] = None,
+                 batch_shape=()) -> TerrainDraws:
+    """The random fields of one terrain, or of ``batch_shape`` terrains
+    (each field then leads with it), drawn with ``generator`` on its
     device (the CPU's default generator when None)."""
     nrow, ncol = model.hfield_nrow, model.hfield_ncol
     dev = generator.device if generator is not None else torch.device("cpu")
+    batch_shape = tuple(batch_shape)
 
     def u(shape, lo=0.0, hi=1.0):
-        x = torch.rand(shape, generator=generator, device=dev,
+        x = torch.rand(batch_shape + shape, generator=generator, device=dev,
                        dtype=torch.float32)
         return lo + x * (hi - lo)
 
@@ -67,40 +70,48 @@ def draw_terrain(model: Model,
 
 
 def _smooth_pass(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """One masked 3x3 mean-blend pass (interior cells only)."""
-    p = torch.nn.functional.pad(h[None, None], (1, 1, 1, 1),
-                                mode="replicate")[0, 0]
+    """One masked 3x3 mean-blend pass (interior cells only) of the grids
+    (..., nrow, ncol)."""
+    nrow, ncol = h.shape[-2:]
+    p = torch.nn.functional.pad(h.reshape(-1, 1, nrow, ncol), (1, 1, 1, 1),
+                                mode="replicate").reshape(
+                                    h.shape[:-2] + (nrow + 2, ncol + 2))
     acc = torch.zeros_like(h)
     for dr in (-1, 0, 1):
         for dc in (-1, 0, 1):
-            acc = acc + p[1 + dr:1 + dr + h.shape[0],
-                          1 + dc:1 + dc + h.shape[1]]
+            acc = acc + p[..., 1 + dr:1 + dr + nrow, 1 + dc:1 + dc + ncol]
     avg = acc / 9.0
     blended = h * (1 - SMOOTH_FACTOR) + avg * SMOOTH_FACTOR
     out = torch.where(mask, blended, h)
     # interior only (reference loops r,c in [1, N-2])
-    out[0, :], out[-1, :] = h[0, :], h[-1, :]
-    out[:, 0], out[:, -1] = h[:, 0], h[:, -1]
+    out[..., 0, :], out[..., -1, :] = h[..., 0, :], h[..., -1, :]
+    out[..., :, 0], out[..., :, -1] = h[..., :, 0], h[..., :, -1]
     return out
 
 
 def generate_terrain(model: Model,
                      generator: Optional[torch.Generator] = None,
                      robot_start_xy=(0.0, 0.0),
-                     draws: Optional[TerrainDraws] = None) -> Terrain:
+                     draws: Optional[TerrainDraws] = None,
+                     hfield_size=None) -> Terrain:
     """Sample one episode terrain (heights in meters on the model's hfield
-    grid; rows follow world y, columns world x).  The heights are computed
-    on the device of the draws (the generator's; the CPU by default, so
-    that one seed gives one terrain on every card) and returned on the
-    model's device."""
+    grid; rows follow world y, columns world x), or one per env when the
+    draws lead with a batch axis (``draw_terrain(..., batch_shape=(B,))``:
+    heights (B, nrow, ncol), each the terrain of its own draws).  The
+    heights are computed on the device of the draws (the generator's; the
+    CPU by default, so that one seed gives one terrain on every card) and
+    returned on the model's device.  ``hfield_size`` (x_radius, y_radius,
+    z_extent, base_z) as floats spares the read of the model's sizes back
+    to the host, which a CUDA graph capture refuses."""
     nrow, ncol = model.hfield_nrow, model.hfield_ncol
     if nrow <= 0 or ncol <= 0:
         raise ValueError("model has no heightfield scene")
     if draws is None:
         draws = draw_terrain(model, generator)
     dev = draws.base_h.device
-    size = model.numpy("hfield_size")  # (x_radius, y_radius, z_extent, base_z)
-    sx, sy, sz, base = (float(v) for v in size)
+    if hfield_size is None:
+        hfield_size = model.numpy("hfield_size")
+    sx, sy, sz, base = (float(v) for v in hfield_size)
 
     xs = torch.linspace(-sx, sx, ncol, dtype=torch.float32, device=dev)
     ys = torch.linspace(-sy, sy, nrow, dtype=torch.float32, device=dev)
@@ -109,7 +120,7 @@ def generate_terrain(model: Model,
     dist = torch.sqrt((wx - robot_start_xy[0]) ** 2
                       + (wy - robot_start_xy[1]) ** 2)  # (nrow, ncol)
 
-    flat_radius = draws.flat_radius.to(dev)
+    flat_radius = draws.flat_radius.to(dev)[..., None, None]
     outside = dist >= flat_radius
     freq_x, freq_y = draws.freq_x, draws.freq_y
     position_noise = (
@@ -125,10 +136,11 @@ def generate_terrain(model: Model,
     for _ in range(SMOOTH_PASSES):
         h = _smooth_pass(h, outside)
 
-    mn, mx = torch.min(h), torch.max(h)
+    mn = torch.amin(h, dim=(-2, -1), keepdim=True)
+    mx = torch.amax(h, dim=(-2, -1), keepdim=True)
     norm = torch.where(mx <= mn + 1e-4, torch.full_like(h, 0.5),
                        (h - mn) / (mx - mn))
-    is_flat = draws.flat_u.to(dev) < FLAT_PROB
+    is_flat = draws.flat_u.to(dev)[..., None, None] < FLAT_PROB
     norm = torch.where(is_flat, torch.full_like(norm, 0.5), norm)
     return Terrain(height=(base + norm * sz).to(model.device))
 

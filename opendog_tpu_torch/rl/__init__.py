@@ -1,2 +1,3 @@
-"""Learning on top of the MPC stack: the policy network, the reader of the
-JAX package's saved students, and MPC-to-policy distillation."""
+"""Learning: the policy network, the reader of the JAX package's saved
+students, MPC-to-policy distillation, and PPO with its adaptive schedule
+and deterministic eval."""

@@ -16,6 +16,7 @@ scales), and :func:`load_flax_params` carries a flax parameter tree across.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -175,6 +176,27 @@ def load_flax_params(module: MLPActorCritic, tree: dict) -> MLPActorCritic:
                 put(mod.bias, leaf["bias"], name)
         put(module.log_std, params["log_std"], "log_std")
     return module
+
+
+COMMITTED_WALK_POLICY = os.path.join(os.path.dirname(__file__), "policies",
+                                     "walk_1_best_970.npz")
+
+
+def read_npz_tree(path: str) -> dict:
+    """A flax parameter tree saved as an ``.npz`` of ``layer/leaf`` keys
+    (``Dense_0/kernel``, ..., ``log_std``), as nested dicts of numpy
+    arrays for :func:`load_flax_params`.  ``COMMITTED_WALK_POLICY`` is
+    the JAX package's ``runs/walk_1`` best policy (step 970, the 64-64
+    walk network) carried across so."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *layers, leaf = key.split("/")
+            node = tree
+            for layer in layers:
+                node = node.setdefault(layer, {})
+            node[leaf] = data[key]
+    return tree
 
 
 def gaussian_logp(mean, log_std, action):

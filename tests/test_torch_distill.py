@@ -20,6 +20,8 @@ trains as functions on its data to 1e-5 abs and 1e-4 relative; the eval's
 trajectories, driven by students trained in each package, to 1e-4 abs and
 1e-5 relative, its action RMSE to 1e-3 relative.
 """
+import concurrent.futures
+
 import numpy as np
 import pytest
 import torch
@@ -223,8 +225,16 @@ def run_round_and_eval(variant, engine):
 
     jms = jax.vmap(lambda _: jax_distill.mppi.init_state(
         jm, JaxMPPIConfig(**MINI)))(jnp.arange(S))
-    jplants2, _, key, jobs, jlabels = jax.jit(jd.collect)(
-        jstate, jplants, jms, jnp.float32(beta), **jaux)
+    # the JAX eval's compile (its own copy of the solve, ~30 s on the CPU
+    # with the kernel in interpret mode) runs in a thread beside the
+    # collect's, on the avals of the trained state it will take
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jeval = pool.submit(lambda: jax.jit(
+            jd.eval_fn, static_argnums=2).lower(
+                jstate, jplants, EVAL_TICKS, **jaux).compile())
+        jplants2, _, key, jobs, jlabels = jax.jit(jd.collect)(
+            jstate, jplants, jms, jnp.float32(beta), **jaux)
+        jeval = jeval.result()
     key, sub = jax.random.split(key)
     assert np.array_equal(np.asarray(key), np.asarray(key_after))
     jstate2, jloss = jax.jit(jd.train_on)(jstate.replace(key=key), jobs,
@@ -264,8 +274,7 @@ def run_round_and_eval(variant, engine):
 
     # eval from the round's start, on the trained students
     enorm = _eval_draws(key_after, EVAL_TICKS, MINI, m.nu)
-    jout = jax.jit(jd.eval_fn, static_argnums=2)(jstate2, jplants,
-                                                 EVAL_TICKS, **jaux)
+    jout = jeval(jstate2, jplants, **jaux)
     out = td.eval_fn(dstate, plants, EVAL_TICKS, normals=t(enorm), **aux)
     for k in ("qpos_traj", "ctrl_traj", "final_x", "final_z"):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]),

@@ -700,3 +700,15 @@ def test_graph_collect_tick_equals_eager(cuda_device, payload):
                            **{f"trace_{k}": v for k, v in trace.items()})
     for k in out[True]:
         assert torch.equal(out[True][k], out[False][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["walk", "sym"])
+def test_graph_rollout_step_equals_eager(cuda_device, task):
+    """A PPO chunk's rollout step replayed from its CUDA graph equals the
+    eager step bit for bit on the same draws: every trajectory buffer,
+    every env state field, the last observations (4 envs, 3 steps)."""
+    from chip_smoke import ppo_pair_differences, ppo_rollout_pair
+    pair = ppo_rollout_pair(torch, cuda_device, task, 4, 3)
+    bad, n = ppo_pair_differences(torch, pair)
+    assert not bad and n > 10, bad
