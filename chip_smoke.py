@@ -21,7 +21,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              with their own per-geom planes (K=256 x 2, K=1 x 10);
              plane_payload on the domain-randomised batch (K=4096 x 10);
              pergeom_payload on the terrain states with payloads U(0, 3) kg
-             (K=256 x 2); flat and payload at the distiller's shapes (Go1
+             (K=256 x 2); flat at the robot bridge's OpenDOG shapes (MPPI
+             rollout K=256 x 2, compensated predictor K=1 x 10); flat and
+             payload at the distiller's shapes (Go1
              expert K=4096 x 2, plant K=8 x 10; OpenDOG bench 5 expert
              K=512 x 2); and, check only, all six at a ragged K=257 x 2 and
              flat at bench 5's OpenDOG plant K=8 x 10;
@@ -61,7 +63,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
   ops-engine - op-graph MPPI (engine="ops") of Go1 standing on the jump
              scene's box (box contact), K=256, H=25, 2 x 10 ms: the graphed
              solve equals the eager one bit for bit on injected normals for
-             2 solves; 5 solves eager and 5 replayed, every output finite,
+             2 solves; 3 solves eager and 3 replayed (5 before the bridge phases), every
+             output finite,
              no substep kernel launched;
   payload  - payload-aware trot MPPI (bench 2d): 0 kg equals the flat
              solver to 1e-6, 1.5 kg changes best_cost; the solve captured
@@ -101,14 +104,15 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
   realtime - bench.py:104-156 on the port: 50 graph ticks with a blocking
              copy of the control (the blocking reference), lag = min(5,
              max(1, ceil(median / 20 ms) + 1)), then RealtimeController in
-             benchmark mode primed lag + 3 ticks and paced at 20 ms for 150
-             ticks (bench.py: 250); prints bench.py's host-loop fields (p99 / median / max
-             / mean host-blocking ms, meets_50hz_budget, overruns, control
+             benchmark mode primed lag + 3 ticks and paced at 20 ms for 100
+             ticks (bench.py: 250; 150 before the bridge phases); prints
+             bench.py's host-loop fields (p99 / median / max / mean
+             host-blocking ms, meets_50hz_budget, overruns, control
              delay, blocking p99 and median); every control finite and in
              ctrlrange, the internal plant's trunk z in (0.12, 0.5) m and
              forward more than 0.5 m, 25 + 1 flat launches per replay;
   bridge   - RealtimeController in bridge mode with delay compensation at
-             that lag, 150 ticks paced at 20 ms against a stand-in robot
+             that lag, 100 ticks paced at 20 ms against a stand-in robot
              (the flat plant step on the card, read to the host before
              each tick, applying each returned control): the same fields
              and gates, 25 rollout + lag + 1 plant launches per tick;
@@ -146,6 +150,32 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the command student on its 0.5 m/s command, every command
              upright); prints mean_vx per command beside the artifact's
              record (400 ticks on the JAX package's plant, not a target);
+  mpc-bridge - the robot bridge over the wire (apps/mpc_bridge.py): the
+             port's firmware_sim built from native/ with g++ and two of it
+             spawned on loopback (the robot's two motor ESP32s: UDP/JSON
+             with ACK, 500 Hz PID servo, telemetry); the DigitalTwin's
+             advance (10 op-graph substeps, one CUDA graph on its own
+             stream) against the eager step bit for bit on 3 advances,
+             then 50 advances timed alone in turns on its own and the
+             default stream; then make_bridge (OpenDOG trot MPPI, K=256,
+             H=25, 2 x 10 ms on K1, lag 3) in a plain and a compensated arm:
+             bring-up over the wire, 150 paced 50 Hz ticks; prints
+             MPCBridge.metrics and each tick's parts (twin estimate,
+             bridge_tick, set_angles); gates: finite metrics, twin_healthy,
+             joint_track_rmse_deg < 8, 25 K1 launches at K=256 x2 per tick
+             and, compensated, lag K1 launches at K=1 x10 per tick; then a
+             plain arm of 100 ticks with the twin's stream alternating
+             (own, default) tick by tick;
+  student-bridge - scripts/torch_cmd_student_bridge.py --smoke on the card:
+             the committed OpenDOG command student (runs/distill_cmd_opendog)
+             in StudentBridge.run_segments at 50 Hz over the schedule (T=10,
+             120 ticks) against its own firmware pair; gates upright_all,
+             prints the other three summary booleans; no kernel launched;
+  gait-replay - sim2real/gait_designer.py: a 130-substep row replayed from
+             the 128- and 1-substep graphs equal to eager bit for bit; the
+             full design_trot (14 rows, 6.8 s of robot time) through
+             replay_gait on the card: finite, trunk z above 0.03 m; prints
+             the seconds;
   ppo-graph - PPO training (train.py's path; the envs step on the
              op-graph physics, no substep kernel): one chunk's rollout of
              walk, sym and terrain at 16 envs, eager and with the rollout
@@ -153,16 +183,18 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              autoreset merge, the trajectory write) replayed from its CUDA
              graph, from the same state on the same draws: every trajectory
              buffer, env state field and observation equal bit for bit
-             over 4 steps; eager ms per step;
+             over 2 steps (4 before the bridge phases); eager ms per step;
   ppo-walk - train("walk") at runs/walk_1's configuration, the CLI
              defaults (16 envs x 128 steps, minibatch 512, 10 epochs,
-             64-64, clip): 3 chunks and a 500-step eval; replayed ms per
-             rollout step, s per update, env-steps/s, peak memory; gates:
-             finite metrics, update_count 3, the parameters moved;
+             64-64, clip): 2 chunks (3 before the bridge phases) and a 500-step eval;
+             replayed ms per rollout step, s per update, env-steps/s, peak
+             memory; gates: finite metrics, update_count 2, the parameters
+             moved;
   ppo-walk-1024 - one chunk of the same at 1024 envs;
   ppo-tasks - one chunk each of turn, jump, landing, sym (512-256) and
              terrain (1024-512) at their TASKS widths, 16 envs, n_steps
-             cut to 32 (the CLI: 128); sym exports its walk json;
+             cut to 16 (the CLI: 128; 32 before the bridge phases); sym exports its walk
+             json;
   ppo-policy - the committed runs/walk_1 policy (best/970, the .npz of
              rl/policies/) in a 500-step eval on the card, replayed from a
              graph of one step: upright for at least 250 steps and more
@@ -186,12 +218,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # depths cut to keep the script inside 600 s with the PPO phases (the flat
-# and paced loops ran 250 ticks before them, the terrain loops 100)
+# and paced loops ran 250 ticks before them, the terrain loops 100) and the
+# robot bridge's (ops-engine, iLQR, paced-loop and PPO depths, below)
 TICKS = 150            # flat trot loop
 TERRAIN_TICKS = 50     # per-geom terrain MPC
 TRUNK_TICKS = 50       # trunk-plane terrain MPC
 EXACT_TICKS = TERRAIN_TICKS  # exact-plant terrain MPC, as many as terrain
-OPS_SOLVES = 5         # op-graph MPPI solves a side
+OPS_SOLVES = 3         # op-graph MPPI solves a side (5 before the bridge's)
 OPS_EQ_SOLVES = 2      # graph vs eager op-graph solves on the same normals
 OPS_CHECK_TOL = {"qpos": 1e-4, "qvel": 5e-3}  # op-graph step vs kernel
 CPU_CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # card step vs CPU step
@@ -201,7 +234,8 @@ PERGEOM_PAYLOAD_KG = 0.5
 BATCH_STEPS = 20
 EQ_STEPS = 4           # graph vs eager calls on the same normals, per path
 SYNC_TICKS = 50        # [realtime] blocking reference ticks (bench.py's n2)
-RT_TICKS = 150         # [realtime] paced ticks (bench.py's n: 250)
+RT_TICKS = 100         # [realtime], [bridge] paced ticks (bench.py's n:
+                       # 250; 150 before the bridge phases)
 TICK_S = 0.02          # the 50 Hz tick period
 # a control is the softmax-weighted mean of plans clipped into ctrlrange;
 # float32 rounding of that mean may put it an ulp or so outside
@@ -226,9 +260,10 @@ PLANT = dict(K=1, dt=0.002, n=10)
 BATCH = dict(K=4096, dt=0.002, n=10)
 # [ilqr] and [ilqr-trot] (bench 3 and 3b, scripts/bench_suite.py:305-394):
 # full width, cut in cycles only
-ILQR_CYCLES = 2        # timed graph cycles of bench 3 after the capture cycle
-TROT_CYCLES = 2        # timed graph cycles of bench 3b (the bench: 10; cut
-                       # from 4 to make room for the PPO phases)
+ILQR_CYCLES = 1        # timed graph cycles of bench 3 after the capture
+                       # cycle (2 before the bridge phases)
+TROT_CYCLES = 1        # timed graph cycles of bench 3b (the bench: 10; cut
+                       # from 4 for the PPO phases, from 2 for the bridge's)
 ILQR_Z_BAND = (0.15, 0.4)  # bench 3's healthy trunk z after a cycle
 TROT_Z_MIN = 0.12          # bench 3b's healthy: min trunk z over all ticks
 TROT_Z_LAST = (0.18, 0.4)  # and the mean over the last cycle
@@ -246,18 +281,32 @@ BENCH5_EXPERT = dict(K=8 * 64, dt=0.01, n=2)
 STUDENT_TICKS = 100
 # PPO training (train.py's path): the CLI defaults are runs/walk_1's
 # configuration (16 envs x 128 steps, minibatch 512, 10 epochs, 64-64)
-PPO_EQ_STEPS = 4           # graph vs eager rollout steps on the same draws
+PPO_EQ_STEPS = 2           # graph vs eager rollout steps on the same draws
+                           # (4 before the bridge phases)
 PPO_EQ_TASKS = ("walk", "sym", "terrain")
 PPO_WALK = dict(n_envs=16, n_steps=128, minibatch_size=512, num_epochs=10)
-PPO_WALK_CHUNKS = 3
+PPO_WALK_CHUNKS = 2        # (3 before the bridge phases)
 PPO_WIDE_ENVS = 1024       # the batch the JAX PPO is written for
 PPO_TASKS = ("turn", "jump", "landing", "sym", "terrain")
-PPO_TASK_STEPS = 32        # [ppo-tasks] n_steps (the CLI: 128)
+PPO_TASK_STEPS = 16        # [ppo-tasks] n_steps (the CLI: 128; 32 before
+                           # the bridge phases)
 PPO_EVAL_STEPS = 500
 POLICY_MIN_STEPS = 250     # the committed walk policy stays upright so long
 POLICY_MIN_X = 0.5         # and goes so far forward [m]
 PPO_OUT = os.path.join(ROOT, "runs", "torch_smoke")   # gitignored
 STUDENT_MIN_X = 0.15       # tests/test_distill.py's forward gate [m]
+# [mpc-bridge], [student-bridge], [gait-replay]: the robot bridge over the
+# wire (apps/mpc_bridge.py) against two firmware simulators on loopback
+BRIDGE = dict(lag=3, ticks=150, samples=256)  # make_bridge, 50 Hz ticks
+BRIDGE_PORT = 19645        # telemetry port; the two firmware sims on +1, +2
+STUDENT_BRIDGE_PORT = 19745
+BRIDGE_RMSE_DEG = 8.0      # tests/test_mpc_bridge.py's joint tracking gate
+TWIN_TICKS = 50            # twin advances timed alone
+TWIN_EQ_TICKS = 3          # twin graph vs eager on the same angles
+STREAM_AB_TICKS = 100      # plain arm, the twin's stream alternating
+STUDENT_BRIDGE_T = 10      # scripts/torch_cmd_student_bridge.py --smoke
+GAIT_EQ_SUBSTEPS = 130     # one 128-substep chunk and two single substeps
+GAIT_Z_MIN = 0.03          # tests/test_golden_gait_replay.py:203's gate
 
 
 def log(msg):
@@ -410,10 +459,12 @@ class Smoke:
 
     # -- check ------------------------------------------------------------
     def check(self, label, model, shape, with_plane, with_payload, arrays,
-              keep=True):
+              keep=True, exclusive=False):
         """Kernel vs plain on ``arrays`` (numpy (rows, K): qpos, qvel, ctrl,
         plane or None, payload or None); keeps the record for timing unless
-        ``keep`` is False (a shape that no path launches)."""
+        ``keep`` is False (a shape that no path launches).  An
+        ``exclusive`` record counts only the launches of the phases that
+        name it (``counted(rows=...)``)."""
         torch, cs = self.torch, self.cs
         args = [None if a is None else
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
@@ -430,18 +481,24 @@ class Smoke:
                "qvel": (kv - pv).abs().max().item()}
         if not (torch.isfinite(kp).all() and torch.isfinite(kv).all()):
             raise RuntimeError(f"[check] {label}: kernel output not finite")
-        # conditioning of these inputs: the plain version's own change when
-        # qvel moves by 1e-7 relative (a few float32 ulps)
-        _, pv2 = plain(args[0], args[1] * (1 + 1e-7), *args[2:])
-        spread = (pv2 - pv).abs().max(dim=0).values
         K = shape["K"]
+        conditioning = ""
+        if shape["dt"] >= 0.01:
+            # conditioning of these inputs at the rollouts' 10 ms substeps:
+            # the plain version's own change when qvel moves by 1e-7
+            # relative (a few float32 ulps).  Not at the plants' 2 ms
+            # substeps (well conditioned: at most 3.6e-5 there on an H100),
+            # where one more plain call costs 3-6 s
+            _, pv2 = plain(args[0], args[1] * (1 + 1e-7), *args[2:])
+            spread = (pv2 - pv).abs().max(dim=0).values
+            conditioning = (
+                f"; plain qvel moves by up to {spread.max().item():.3e} "
+                f"under a 1e-7 relative change of qvel, by > 1e-4 in "
+                f"{int((spread > 1e-4).sum())} of {K} rollouts")
         log(f"[check] {label} K={K} x{shape['n']} dt={shape['dt']}: "
             f"max abs err qpos {err['qpos']:.3e} qvel {err['qvel']:.3e} "
             f"(tolerance {CHECK_TOL['qpos']:.0e} / {CHECK_TOL['qvel']:.0e}; "
-            f"max |qvel| {pv.abs().max().item():.3f}; plain qvel moves by "
-            f"up to {spread.max().item():.3e} under a 1e-7 relative change "
-            f"of qvel, by > 1e-4 in {int((spread > 1e-4).sum())} of {K} "
-            f"rollouts)")
+            f"max |qvel| {pv.abs().max().item():.3f}{conditioning})")
         for k in err:
             if not err[k] <= CHECK_TOL[k]:
                 raise RuntimeError(f"[check] {label}: kernel disagrees with "
@@ -452,7 +509,7 @@ class Smoke:
             model=model, shape=shape, err=max(err.values()), args=args,
             kern=kern, plain=plain, launches=0, name=kern.name,
             key=cs.launch_key(K, shape["n"], with_plane, with_payload),
-            modes=(with_plane, with_payload))
+            modes=(with_plane, with_payload), exclusive=exclusive)
 
     def check_all(self):
         go1, dog, dog_t = self.go1, self.dog, self.dog_t
@@ -488,6 +545,15 @@ class Smoke:
         self.check("flat bench5 expert", dog, BENCH5_EXPERT, False, False,
                    random_batch(dog, BENCH5_EXPERT["K"], on_ground=True)
                    + none)
+        # the robot bridge (make_bridge): OpenDOG flat MPPI rollouts and
+        # the compensated solve's predictor; their launches are counted by
+        # the bridge phases alone
+        self.check("flat bridge rollout", dog, ROLLOUT, False, False,
+                   random_batch(dog, K, on_ground=True) + none,
+                   exclusive=True)
+        self.check("flat bridge predictor", dog, PLANT, False, False,
+                   random_batch(dog, PLANT["K"], on_ground=True) + none,
+                   exclusive=True)
         # the launch counter keys by shape, not model: bench 5's OpenDOG
         # plant counts under the Go1 plant's row
         self.check("flat bench5 plant", dog, DISTILL_PLANT, False, False,
@@ -511,9 +577,12 @@ class Smoke:
                    + random_modes(dog_t, Kr, False, True)[1:], keep=False)
 
     # -- paths ------------------------------------------------------------
-    def counted(self, label, run, want):
+    def counted(self, label, run, want, rows=None):
         """Runs ``run()`` with every launch count set to 0 just before and
-        read just after; the counts must equal ``want`` exactly."""
+        read just after; the counts must equal ``want`` exactly.  The
+        launches go to the kernel records of their shape, or with ``rows``
+        to the named records alone (the counter keys by shape, not model:
+        the bridge's OpenDOG rows share the Go1 rows' shapes)."""
         cs = self.cs
         cs.LAUNCHES.clear()
         out = run()
@@ -523,8 +592,9 @@ class Smoke:
         if launches != want:
             raise RuntimeError(f"[{label}] kernel launches {launches} != "
                                f"{want}")
-        for rec in self.records.values():
-            rec["launches"] += launches.get(rec["key"], 0)
+        for name, rec in self.records.items():
+            if (name in rows) if rows is not None else not rec["exclusive"]:
+                rec["launches"] += launches.get(rec["key"], 0)
         return out
 
     def graph_matches(self, label, step, gstep, first, n=None,
@@ -1735,6 +1805,282 @@ class Smoke:
             out[run] = rec
         return out
 
+    # -- the robot bridge over the wire (apps/mpc_bridge.py) -------------
+    def twin_check(self, model):
+        """The DigitalTwin on the card: its advance replayed from a CUDA
+        graph on its own stream equals the eager op-graph step bit for bit
+        on the same angles; then the advance timed alone (host blocking
+        time of ``mirror_once`` + ``snapshot``, and CUDA events on the
+        twin's stream)."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.physics import dynamics, make_state
+        from opendog_tpu_torch.sim2real.twin import DigitalTwin
+        twin = DigitalTwin(model, device=dev)
+        cal = twin.cal
+        rng = np.random.default_rng(7)
+        angles = cal.real_home_deg + rng.uniform(
+            -10, 10, (TWIN_EQ_TICKS + TWIN_TICKS, 8)).astype(np.float32)
+        st = make_state(twin.model, "home")
+        t0 = time.perf_counter()
+        for a in angles[:TWIN_EQ_TICKS]:
+            st, _ = dynamics.step(twin.model, st, twin.real_angles_to_ctrl(a),
+                                  n_substeps=10)
+            twin.mirror_once(a, substeps=10)
+            g = twin.snapshot()  # read on the twin's stream
+            for k in ("qpos", "qvel", "time"):
+                e = getattr(st, k).cpu()
+                if not torch.equal(e, getattr(g, k)):
+                    d = (e - getattr(g, k)).abs().max().item()
+                    raise RuntimeError(f"[mpc-bridge] the twin's graph "
+                                       f"differs from eager on {k}: {d}")
+        log(f"[mpc-bridge] twin: graph (own stream) vs eager over "
+            f"{TWIN_EQ_TICKS} advances of 10 substeps on the same angles: "
+            f"qpos, qvel, time equal bit for bit "
+            f"({time.perf_counter() - t0:.3f} s with the capture)")
+        # alone, replayed in turns on the twin's own stream and on the
+        # default stream
+        streams = {"own": twin._stream,
+                   "default": torch.cuda.current_stream(dev)}
+        host = {k: [] for k in streams}
+        dev_ms = {k: [] for k in streams}
+        for i, a in enumerate(angles[TWIN_EQ_TICKS:]):
+            side = ("own", "default")[i % 2]
+            twin._stream = streams[side]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record(twin._stream)
+            twin.mirror_once(a, substeps=10)
+            end.record(twin._stream)
+            twin.snapshot()
+            host[side].append(time.perf_counter() - t0)
+            end.synchronize()
+            dev_ms[side].append(start.elapsed_time(end))
+        twin._stream = streams["own"]
+        fields = {f"{side}_stream": dict(
+            host_ms_median=1e3 * float(np.median(host[side])),
+            host_ms_p99=1e3 * float(np.percentile(host[side], 99)),
+            device_ms_median=float(np.median(dev_ms[side])))
+            for side in streams}
+        fields["nodes"] = graph_nodes(twin._graphs[10].graph)
+        log(f"[mpc-bridge] twin advance (10 op-graph substeps, one graph "
+            f"replay) + snapshot, {TWIN_TICKS} alone, in turns on its own "
+            f"and on the default stream: " + json.dumps(fields))
+        return fields
+
+    def mpc_bridge(self):
+        """make_bridge (OpenDOG trot MPPI on K1, K=256, H=25, 2 x 10 ms)
+        against two firmware simulators built from native/ and spawned on
+        loopback: a plain and a compensated arm, each primed off the clock
+        and run for BRIDGE["ticks"] paced 50 Hz ticks; then a plain arm of
+        STREAM_AB_TICKS whose twin replays on its own stream and on the
+        default stream (the controller's) in turns, tick by tick."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.apps.mpc_bridge import make_bridge
+        from opendog_tpu_torch.native import build as native
+        from opendog_tpu_torch.sdk import QuadPilotBody
+        t0 = time.perf_counter()
+        binary = native.build("firmware_sim")
+        log(f"[mpc-bridge] firmware_sim ({binary}) ready in "
+            f"{time.perf_counter() - t0:.2f} s")
+        out = dict(twin=self.twin_check(self.dog))
+        lag, n = BRIDGE["lag"], BRIDGE["ticks"]
+        p1, p2 = BRIDGE_PORT + 1, BRIDGE_PORT + 2
+        with native.firmware_pair(p1, p2, BRIDGE_PORT):
+            for arm in ("plain", "compensated", "stream-ab"):
+                body = QuadPilotBody(ip1="127.0.0.1", ip2="127.0.0.1",
+                                     port1=p1, port2=p2,
+                                     listen_for_broadcasts=True,
+                                     listen_port=BRIDGE_PORT)
+                try:
+                    out[arm] = self.bridge_arm(
+                        arm, body, make_bridge(
+                            body, lag=lag, num_samples=BRIDGE["samples"],
+                            engine="kernel", compensate=arm == "compensated",
+                            device=dev))
+                finally:
+                    body.close()
+        return out
+
+    def bridge_arm(self, arm, body, bridge):
+        """One arm of [mpc-bridge]: bring-up over the wire, priming ticks
+        (the captures), the paced run with its launches counted, a time
+        breakdown of each tick (twin estimate, bridge_tick, set_angles) and
+        the gates."""
+        torch, cs = self.torch, self.cs
+        label = f"mpc-bridge {arm}"
+        lag = bridge.controller.lag
+        if not bridge.bring_up(settle_s=1.0):
+            raise RuntimeError(f"[{label}] bring-up not ACKed by the firmware")
+        deadline = time.time() + 3.0
+        while not (body.is_data_available_from_esp(0)
+                   and body.is_data_available_from_esp(1)):
+            if time.time() > deadline:
+                raise RuntimeError(f"[{label}] no telemetry from the firmware")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        for _ in range(lag + 2):  # captures the solve and the twin's advance
+            bridge.tick()
+            time.sleep(TICK_S)
+        log(f"[{label}] {lag + 2} priming ticks (with the captures) in "
+            f"{time.perf_counter() - t0:.3f} s")
+        parts = {"estimate": [], "bridge_tick": [], "set_angles": []}
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                parts[name].append(time.perf_counter() - t)
+                return r
+            return call
+
+        if arm == "stream-ab":
+            # the twin's replay in turns on its own stream and queued on
+            # the controller's (default) stream, behind the solve in flight
+            twin = bridge.twin
+            streams = (twin._stream, torch.cuda.current_stream(self.dev))
+            parts = {"estimate own stream": [],
+                     "estimate default stream": [], "bridge_tick": [],
+                     "set_angles": []}
+            estimate, calls = bridge._estimate_state, [0]
+
+            def alternating():
+                side = calls[0] % 2
+                calls[0] += 1
+                twin._stream = streams[side]
+                return timed(("estimate own stream",
+                              "estimate default stream")[side], estimate)()
+
+            bridge._estimate_state = alternating
+        else:
+            bridge._estimate_state = timed("estimate",
+                                           bridge._estimate_state)
+        bridge.controller.bridge_tick = timed("bridge_tick",
+                                              bridge.controller.bridge_tick)
+        body.set_angles = timed("set_angles", body.set_angles)
+        n = STREAM_AB_TICKS if arm == "stream-ab" else BRIDGE["ticks"]
+        cfg = bridge.controller._config
+        want = {cs.launch_key(cfg.num_samples, cfg.n_substeps):
+                cfg.horizon * n}
+        if bridge.controller.compensate:  # the predictor: K=1 x10 per lag
+            want[cs.launch_key(1, bridge.controller._plant_substeps)] = \
+                lag * n
+        rows = ["flat bridge rollout"] + (
+            ["flat bridge predictor"] if bridge.controller.compensate else [])
+        m = self.counted(label, lambda: bridge.run(n, rate_hz=1 / TICK_S),
+                         want, rows=rows)
+        m["parts_ms"] = {k: dict(median=1e3 * float(np.median(v)),
+                                 p99=1e3 * float(np.percentile(v, 99)),
+                                 max=1e3 * float(np.max(v)))
+                         for k, v in parts.items()}
+        log(f"[{label}] {n} ticks paced at {TICK_S * 1e3:.0f} ms: "
+            + json.dumps(m))
+        numbers = [v for v in m.values() if isinstance(v, (int, float))]
+        if not np.isfinite(numbers).all():
+            raise RuntimeError(f"[{label}] a metric is not finite: {m}")
+        if not m["twin_healthy"]:
+            raise RuntimeError(f"[{label}] the twin is not healthy: {m}")
+        if not m["joint_track_rmse_deg"] < BRIDGE_RMSE_DEG:
+            raise RuntimeError(f"[{label}] joint tracking RMSE "
+                               f"{m['joint_track_rmse_deg']} deg is not under "
+                               f"{BRIDGE_RMSE_DEG}")
+        return m
+
+    def student_bridge(self):
+        """scripts/torch_cmd_student_bridge.py --smoke on the card: the
+        committed OpenDOG command student (runs/distill_cmd_opendog) through
+        StudentBridge.run_segments at 50 Hz against its own firmware pair.
+        Before it, the student's CUDA graph (StudentBridge.act) against
+        its eager policy bit for bit on 3 random states and commands.
+        Gates upright_all; prints the other summary booleans."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.apps.mpc_bridge import StudentBridge
+        from opendog_tpu_torch.rl.distill_zoo import (cmd_distill_setup,
+                                                      load_student)
+        setup = cmd_distill_setup("opendog", engine="kernel", device=dev)
+        m = setup.model
+        policy = load_student(os.path.join(
+            ROOT, "runs", "distill_cmd_opendog", "student.msgpack"), setup,
+            command_dim=3)
+        sb = StudentBridge(m, policy, None, device=dev)
+        rng = np.random.default_rng(8)
+        for i in range(3):
+            q = m.numpy("key_qpos")[0] + rng.normal(0, 0.02, m.nq)
+            v = rng.normal(0, 0.2, m.nv)
+            t = 0.02 * (i + 1)
+            sb._prev = sb._prev + rng.normal(0, 0.05, m.nu).astype(
+                np.float32)
+            sb.set_command(rng.uniform(-0.2, 0.2, 3))
+            got = sb.act(q, v, t)
+            want = policy(*(torch.as_tensor(np.asarray(a, np.float32)[None],
+                                            device=dev)
+                            for a in (q, v, t, sb._prev, sb.cmd)))
+            want = want[0].cpu().numpy()
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"[student-bridge] the policy's graph "
+                                   f"differs from eager: "
+                                   f"{np.abs(got - want).max()}")
+        log("[student-bridge] the student's CUDA graph equals its eager "
+            "policy bit for bit on 3 random states and commands")
+        script = bridge_script()
+        out = self.counted("student-bridge", lambda: script.run(
+            os.path.join(ROOT, "runs", "distill_cmd_opendog"),
+            STUDENT_BRIDGE_PORT, STUDENT_BRIDGE_T, (50.0,), device=self.dev,
+            log=lambda s: log(f"[student-bridge] {s}")), {})
+        log("[student-bridge] summary: " + json.dumps(out["summary"]))
+        if not out["summary"]["upright_all"]:
+            raise RuntimeError("[student-bridge] a segment fell: "
+                               + json.dumps(out["rate_50hz"]["segments"]))
+        return dict({k: v for k, v in out["rate_50hz"].items()
+                     if k != "segments"}, summary=out["summary"])
+
+    def gait_replay(self):
+        """sim2real/gait_designer.py on the card: a 130-substep row replayed
+        from the 128-substep and 1-substep graphs equals the eager op-graph
+        step bit for bit; then the full design_trot (12 swing steps, 6.8 s
+        of robot time) through replay_gait: finite, trunk above
+        GAIT_Z_MIN."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.physics import dynamics, make_state
+        from opendog_tpu_torch.sim2real import gait_designer as gd
+        m = self.dog
+        d, sim, _ = gd.design_trot(m)
+        row = sim[1:2]
+        got = gd.replay_gait(m, [GAIT_EQ_SUBSTEPS * m.timestep], row,
+                             settle_steps=2, device=dev)
+        inv = np.argsort(gd.Calibration(m).model_actuator_index)
+        ctrl = torch.from_numpy(row[0, inv].copy()).to(dev)
+        st = make_state(m, "home")
+        st, _ = dynamics.step(m, st, m.key_ctrl[0], None, n_substeps=2)
+        for _ in range(GAIT_EQ_SUBSTEPS):
+            st, _ = dynamics.step(m, st, ctrl, n_substeps=1)
+        eager = st.qpos[:7].cpu().numpy()
+        if not np.array_equal(got["trunk"][0], eager):
+            raise RuntimeError(f"[gait-replay] graphs differ from eager: "
+                               f"{np.abs(got['trunk'][0] - eager).max()}")
+        log(f"[gait-replay] {GAIT_EQ_SUBSTEPS} substeps from the 128- and "
+            "1-substep graphs equal eager bit for bit")
+
+        def run():
+            t0 = time.perf_counter()
+            r = gd.replay_gait(m, d, sim, device=dev)
+            return r, time.perf_counter() - t0
+
+        res, wall = self.counted("gait-replay", run, {})
+        trunk = res["trunk"]
+        fields = dict(seconds=wall, rows=len(d), robot_seconds=float(sum(d)),
+                      trunk_z_min=float(trunk[:, 2].min()),
+                      final_x=float(trunk[-1, 0]),
+                      max_joint_err=float(res["max_joint_err"].max()))
+        log("[gait-replay] design_trot replayed: " + json.dumps(fields))
+        if not (np.isfinite(trunk).all()
+                and np.isfinite(res["max_joint_err"]).all()):
+            raise RuntimeError("[gait-replay] non-finite trunk or error")
+        if not fields["trunk_z_min"] > GAIT_Z_MIN:
+            raise RuntimeError(f"[gait-replay] trunk z {fields['trunk_z_min']}"
+                               f" is not above {GAIT_Z_MIN}")
+        return fields
+
     # -- PPO training ---------------------------------------------------
     def ppo_graph(self):
         """[ppo-graph]: the rollout step replayed from its CUDA graph equals
@@ -2063,6 +2409,18 @@ def distill_script():
     return mod
 
 
+def bridge_script():
+    """scripts/torch_cmd_student_bridge.py as a module: its schedule, run
+    and summary."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_cmd_student_bridge", os.path.join(
+            ROOT, "scripts", "torch_cmd_student_bridge.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def ppo_rollout_pair(torch, dev, task, n_envs, n_steps, seed=0):
     """One chunk of ``task`` (its TASKS network and loss; 1 epoch of one
     minibatch) from the same initial state and the same draws, eager and
@@ -2157,12 +2515,20 @@ def ppo_phases(smoke):
                 policy=smoke.ppo_policy())
 
 
+def bridge_phases(smoke):
+    """The robot bridge phases (apps/mpc_bridge.py, sim2real/), in order."""
+    return {"mpc-bridge": smoke.mpc_bridge(),
+            "student-bridge": smoke.student_bridge(),
+            "gait-replay": smoke.gait_replay()}
+
+
 def main(argv=None):
-    """``--only ppo`` runs the device phase and the PPO phases alone (a
-    development aid: no kernel is built or checked, no "ok" line)."""
+    """``--only ppo`` (``bridge``) runs the device phase and the PPO
+    phases (the bridge phases) alone: a development aid, with no kernel
+    checked and no "ok" line."""
     import argparse
     p = argparse.ArgumentParser()
-    p.add_argument("--only", choices=["ppo"], default=None)
+    p.add_argument("--only", choices=["ppo", "bridge"], default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
     import torch
@@ -2181,9 +2547,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.only == "ppo":
-        ppo = ppo_phases(Smoke(torch, dev))
-        log("[summary] ppo: " + json.dumps(ppo))
+    if args.only is not None:
+        smoke = Smoke(torch, dev)
+        res = (ppo_phases(smoke) if args.only == "ppo"
+               else bridge_phases(smoke))
+        log(f"[summary] {args.only}: " + json.dumps(res))
         log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
         log(smi)
         return 0
@@ -2223,6 +2591,7 @@ def main(argv=None):
                                     PAYLOAD_DISTILL["ticks"], 0)
     bench5 = smoke.bench5()
     students = smoke.students()
+    bridge_out = bridge_phases(smoke)
     ppo = ppo_phases(smoke)
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
@@ -2248,6 +2617,7 @@ def main(argv=None):
     log("[summary] student: " + json.dumps(
         {run: {k: v for k, v in rec.items() if k != "per_command"}
          for run, rec in students.items()}))
+    log("[summary] robot bridge: " + json.dumps(bridge_out))
     log("[summary] ppo: " + json.dumps(ppo))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)

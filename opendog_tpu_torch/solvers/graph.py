@@ -11,6 +11,7 @@ then issues a few input copies and one graph launch per tick.
 from __future__ import annotations
 
 import collections
+import gc
 from typing import Callable, Sequence
 
 import torch
@@ -42,6 +43,11 @@ class GraphedTick:
     would count launches that never ran and a replay none.  The capture's
     counts are taken out of the counter (kept in ``launches``) and added
     back once per replay.
+
+    Python's cyclic garbage collector is held off during the capture: a
+    collection there may free an unreachable object that owns another CUDA
+    graph, and destroying a graph while a stream captures invalidates the
+    capture (PyTorch no longer collects before a capture).
     """
 
     def __init__(self, fn: Callable, example_inputs: Sequence[torch.Tensor],
@@ -62,10 +68,14 @@ class GraphedTick:
             # count, raw_cuda_graph) after instantiation
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = collections.Counter(cuda_step.LAUNCHES)
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(self.graph):
                     self.outputs = fn(*self.inputs)
             finally:
+                if collecting:
+                    gc.enable()
                 self.launches = cuda_step.LAUNCHES - before
                 cuda_step.LAUNCHES.clear()
                 cuda_step.LAUNCHES.update(before)

@@ -712,3 +712,113 @@ def test_graph_rollout_step_equals_eager(cuda_device, task):
     pair = ppo_rollout_pair(torch, cuda_device, task, 4, 3)
     bad, n = ppo_pair_differences(torch, pair)
     assert not bad and n > 10, bad
+
+
+@pytest.mark.gpu
+def test_twin_graph_on_own_stream_equals_eager(cuda_device):
+    """The DigitalTwin's advance, replayed from its CUDA graph on the
+    twin's own stream, equals the eager op-graph step on the card bit for
+    bit on the same angles; ``snapshot`` reads it to the host."""
+    from opendog_tpu_torch.physics import dynamics, make_state
+    from opendog_tpu_torch.sim2real.twin import DigitalTwin
+
+    twin = DigitalTwin(load_opendog("flat"), device=cuda_device)
+    assert twin._stream is not None
+    rng = np.random.default_rng(0)
+    st = make_state(twin.model, "home")
+    for substeps in (10, 10, 2, 10):
+        a = twin.cal.real_home_deg + rng.uniform(-10, 10, 8).astype(
+            np.float32)
+        st, _ = dynamics.step(twin.model, st, twin.real_angles_to_ctrl(a),
+                              n_substeps=substeps)
+        twin.mirror_once(a, substeps=substeps)
+        snap = twin.snapshot()
+        assert snap.qpos.device.type == "cpu"
+        for k in ("qpos", "qvel", "time"):
+            assert torch.equal(getattr(st, k).cpu(), getattr(snap, k)), k
+    assert sorted(twin._graphs) == [2, 10]
+
+
+@pytest.mark.gpu
+def test_gait_replay_graphs_equal_eager(cuda_device):
+    """replay_gait on the card (the 128- and 1-substep advances replayed
+    from CUDA graphs) lands where eager single substeps do, bit for bit."""
+    from opendog_tpu_torch.physics import dynamics, make_state
+    from opendog_tpu_torch.sim2real import gait_designer as gd
+
+    m = load_opendog("flat")
+    _, sim, _ = gd.design_trot(m)
+    got = gd.replay_gait(m, [130 * m.timestep, 3 * m.timestep], sim[1:3],
+                         settle_steps=2, device=cuda_device)
+    inv = np.argsort(gd.Calibration(m).model_actuator_index)
+    st = make_state(m, "home")
+    st, _ = dynamics.step(m, st, m.key_ctrl[0], None, n_substeps=2)
+    for row, n in ((sim[1], 130), (sim[2], 3)):
+        ctrl = torch.from_numpy(row[inv].copy()).to(cuda_device)
+        for _ in range(n):
+            st, _ = dynamics.step(m, st, ctrl, n_substeps=1)
+    np.testing.assert_array_equal(got["trunk"][-1], st.qpos[:7].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_student_bridge_graph_equals_eager(cuda_device):
+    """StudentBridge.act replays the command student from a CUDA graph:
+    equal to the eager policy bit for bit on the card."""
+    import os
+
+    from opendog_tpu_torch.apps.mpc_bridge import StudentBridge
+    from opendog_tpu_torch.rl.distill_zoo import cmd_distill_setup, load_student
+
+    setup = cmd_distill_setup("opendog", engine="kernel", device=cuda_device)
+    m = setup.model
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "runs", "distill_cmd_opendog",
+        "student.msgpack")
+    policy = load_student(path, setup, command_dim=3)
+    sb = StudentBridge(m, policy, None, device=cuda_device)
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        q = m.numpy("key_qpos")[0] + rng.normal(0, 0.02, m.nq)
+        v = rng.normal(0, 0.2, m.nv)
+        sb.set_command(rng.uniform(-0.2, 0.2, 3))
+        got = sb.act(q, v, 0.02 * i)
+        want = policy(*(torch.as_tensor(np.asarray(a, np.float32)[None],
+                                        device=cuda_device)
+                        for a in (q, v, 0.02 * i, sb._prev, sb.cmd)))
+        np.testing.assert_array_equal(got, want[0].cpu().numpy())
+        sb._prev = got
+
+
+@pytest.mark.gpu
+def test_capture_survives_garbage_that_owns_a_graph(cuda_device):
+    """An unreachable cycle that owns a captured graph, left for Python's
+    cyclic collector, does not invalidate a later capture: GraphedTick
+    holds the collector off while it captures (with the threshold at 1 a
+    collection would otherwise run inside the capture and destroy the
+    graph there)."""
+    import gc
+
+    from opendog_tpu_torch.solvers.graph import GraphedTick
+
+    x = torch.ones(4, device=cuda_device)
+    keep = [GraphedTick(lambda a: (a * 2,), (x,), cuda_device)]
+    calls = [0]
+
+    def fn(a):
+        calls[0] += 1
+        if calls[0] == 2:  # the captured call (the first is the warm-up)
+            cycle = {"graph": keep.pop()}
+            cycle["self"] = cycle
+            del cycle
+            junk = [[i] for i in range(100)]  # allocations: collector ticks
+            del junk
+        return (a + 1,)
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g = GraphedTick(fn, (x,), cuda_device)
+        out = g(x)[0]
+    finally:
+        gc.set_threshold(*threshold)
+    assert torch.equal(out.cpu(), torch.full((4,), 2.0))
