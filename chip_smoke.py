@@ -22,8 +22,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              plane_payload on the domain-randomised batch (K=4096 x 10);
              pergeom_payload on the terrain states with payloads U(0, 3) kg
              (K=256 x 2); flat at the robot bridge's OpenDOG shapes (MPPI
-             rollout K=256 x 2, compensated predictor K=1 x 10); flat and
-             payload at the distiller's shapes (Go1
+             rollout K=256 x 2, compensated predictor K=1 x 10); flat at
+             the multi-device phases' one-process reference (Go1 K=512 x
+             2); flat and payload at the distiller's shapes (Go1
              expert K=4096 x 2, plant K=8 x 10; OpenDOG bench 5 expert
              K=512 x 2); and, check only, all six at a ragged K=257 x 2 and
              flat at bench 5's OpenDOG plant K=8 x 10;
@@ -63,7 +64,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
   ops-engine - op-graph MPPI (engine="ops") of Go1 standing on the jump
              scene's box (box contact), K=256, H=25, 2 x 10 ms: the graphed
              solve equals the eager one bit for bit on injected normals for
-             2 solves; 3 solves eager and 3 replayed (5 before the bridge phases), every
+             2 solves; 2 solves eager and 2 replayed (5 before the bridge phases,
+             3 before the multi-device phases), every
              output finite,
              no substep kernel launched;
   payload  - payload-aware trot MPPI (bench 2d): 0 kg equals the flat
@@ -150,6 +152,30 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the command student on its 0.5 m/s command, every command
              upright); prints mean_vx per command beside the artifact's
              record (400 ticks on the JAX package's plant, not a target);
+  sharded-1 - the multi-device layer (parallel/, ROADMAP M14) at world
+             size 1 in this process, on an NCCL group (initialize_distributed
+             on a free port): scripts/bench_suite.py config 6 at full width
+             (Go1 flat, trot_cost at 0.5 m/s and 0.265 m, K=256, H=25, 2 x 10
+             ms on K1, sigma 0.12, temperature 0.3) sharded over
+             sample_mesh(1) equal to make_solver bit for bit on the same
+             normals over 5 receding solves; make_mpc(mesh=sample_mesh(1))
+             20 ticks eager and 20 replayed from the CUDA graph that holds
+             the NCCL all_reduce, equal bit for bit, 26 launches per replay;
+             the horizon-sharded associative gains at bench 3's shapes (H=50,
+             nx=37, nu=12) and bench 3's make_ilqr solve at H=50 cut to one
+             iteration, replayed from its CUDA graphs (graphs=True, the CUDA
+             default: the Riccati graph holds the NCCL all_reduces), equal to
+             the unsharded ones bit for bit, the capturing solve and a
+             replayed one;
+             make_sharded_ppo's walk chunk (16 envs x 8 steps, 2 epochs)
+             equal to make_ppo's bit for bit; ms of each side;
+  sharded-2 - two ranks on the one card over gloo (a free port), started
+             with the spawn method, each loading the kernel library built
+             above: 5 config-6 solves at K_local=256 per rank, the ranks'
+             ctrl, nominal and stats the same bits, rank 0's within 1e-5 of
+             the one-process K=512 solve on the same normals, 125 K1
+             launches per rank; sharded_suffix_scan (L=51, nx=37) within
+             2e-4 of the unsharded scan; ms per solve and the card;
   mpc-bridge - the robot bridge over the wire (apps/mpc_bridge.py): the
              port's firmware_sim built from native/ with g++ and two of it
              spawned on loopback (the robot's two motor ESP32s: UDP/JSON
@@ -159,12 +185,14 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              then 50 advances timed alone in turns on its own and the
              default stream; then make_bridge (OpenDOG trot MPPI, K=256,
              H=25, 2 x 10 ms on K1, lag 3) in a plain and a compensated arm:
-             bring-up over the wire, 150 paced 50 Hz ticks; prints
+             bring-up over the wire, 100 paced 50 Hz ticks (150 before the
+             multi-device phases); prints
              MPCBridge.metrics and each tick's parts (twin estimate,
              bridge_tick, set_angles); gates: finite metrics, twin_healthy,
              joint_track_rmse_deg < 8, 25 K1 launches at K=256 x2 per tick
              and, compensated, lag K1 launches at K=1 x10 per tick; then a
-             plain arm of 100 ticks with the twin's stream alternating
+             plain arm of 50 ticks (100 before the multi-device phases) with the
+             twin's stream alternating
              (own, default) tick by tick;
   student-bridge - scripts/torch_cmd_student_bridge.py --smoke on the card:
              the committed OpenDOG command student (runs/distill_cmd_opendog)
@@ -183,24 +211,28 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              autoreset merge, the trajectory write) replayed from its CUDA
              graph, from the same state on the same draws: every trajectory
              buffer, env state field and observation equal bit for bit
-             over 2 steps (4 before the bridge phases); eager ms per step;
+             over 1 step (4 before the bridge phases, 2 before the multi-device
+             phases); eager ms per step;
   ppo-walk - train("walk") at runs/walk_1's configuration, the CLI
              defaults (16 envs x 128 steps, minibatch 512, 10 epochs,
-             64-64, clip): 2 chunks (3 before the bridge phases) and a 500-step eval;
+             64-64, clip): 2 chunks (3 before the bridge phases) and a 250-step
+             eval (500 before the multi-device phases);
              replayed ms per rollout step, s per update, env-steps/s, peak
              memory; gates: finite metrics, update_count 2, the parameters
              moved;
-  ppo-walk-1024 - one chunk of the same at 1024 envs;
+  ppo-walk-1024 - one chunk of the same at 1024 envs (10 epochs);
   ppo-tasks - one chunk each of turn, jump, landing, sym (512-256) and
              terrain (1024-512) at their TASKS widths, 16 envs, n_steps
-             cut to 16 (the CLI: 128; 32 before the bridge phases); sym exports its walk
+             cut to 8 (the CLI: 128; 32 before the bridge phases, 16 before the
+             multi-device phases); sym exports its walk
              json;
   ppo-policy - the committed runs/walk_1 policy (best/970, the .npz of
              rl/policies/) in a 500-step eval on the card, replayed from a
              graph of one step: upright for at least 250 steps and more
              than 0.5 m forward; prints episode_return, episode_len,
              forward_x;
-  profile  - torch.profiler over 10 ticks of the flat, terrain and
+  profile  - torch.profiler over 3 ticks (10 before the multi-device
+             phases) of the flat, terrain and
              exact-terrain loops, eager and graph;
   timing   - CUDA-event times of every kernel at each of its path shapes,
              beside its plain version (one call; the check phase's call is
@@ -218,13 +250,17 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # depths cut to keep the script inside 600 s with the PPO phases (the flat
-# and paced loops ran 250 ticks before them, the terrain loops 100) and the
-# robot bridge's (ops-engine, iLQR, paced-loop and PPO depths, below)
+# and paced loops ran 250 ticks before them, the terrain loops 100), the
+# robot bridge's (ops-engine, iLQR, paced-loop and PPO depths, below) and
+# the multi-device phases' (ops-engine, PPO, bridge and profile depths:
+# "before the multi-device phases")
 TICKS = 150            # flat trot loop
-TERRAIN_TICKS = 50     # per-geom terrain MPC
+TERRAIN_TICKS = 50     # per-geom terrain MPC (the drop from the keyframe
+                       # is over by DROP_TICKS; 20 or more ticks after it)
 TRUNK_TICKS = 50       # trunk-plane terrain MPC
 EXACT_TICKS = TERRAIN_TICKS  # exact-plant terrain MPC, as many as terrain
-OPS_SOLVES = 3         # op-graph MPPI solves a side (5 before the bridge's)
+OPS_SOLVES = 2         # op-graph MPPI solves a side (5 before the bridge's,
+                       # 3 before the multi-device phases)
 OPS_EQ_SOLVES = 2      # graph vs eager op-graph solves on the same normals
 OPS_CHECK_TOL = {"qpos": 1e-4, "qvel": 5e-3}  # op-graph step vs kernel
 CPU_CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # card step vs CPU step
@@ -279,34 +315,64 @@ PAYLOAD_DISTILL = dict(ticks=20, payload_hi=1.5)
 BENCH5 = dict(S=8, K=64, H=10, ticks=50, eval_ticks=100)
 BENCH5_EXPERT = dict(K=8 * 64, dt=0.01, n=2)
 STUDENT_TICKS = 100
+PROFILE_TICKS = 3          # [profile] ticks per loop and side (10 before the
+                           # multi-device phases)
 # PPO training (train.py's path): the CLI defaults are runs/walk_1's
 # configuration (16 envs x 128 steps, minibatch 512, 10 epochs, 64-64)
-PPO_EQ_STEPS = 2           # graph vs eager rollout steps on the same draws
-                           # (4 before the bridge phases)
+PPO_EQ_STEPS = 1           # graph vs eager rollout steps on the same draws
+                           # (4 before the bridge phases, 2 before the
+                           # multi-device phases)
 PPO_EQ_TASKS = ("walk", "sym", "terrain")
 PPO_WALK = dict(n_envs=16, n_steps=128, minibatch_size=512, num_epochs=10)
 PPO_WALK_CHUNKS = 2        # (3 before the bridge phases)
 PPO_WIDE_ENVS = 1024       # the batch the JAX PPO is written for
+PPO_WIDE_EPOCHS = 10       # [ppo-walk-1024]'s update, the CLI's
 PPO_TASKS = ("turn", "jump", "landing", "sym", "terrain")
-PPO_TASK_STEPS = 16        # [ppo-tasks] n_steps (the CLI: 128; 32 before
-                           # the bridge phases)
-PPO_EVAL_STEPS = 500
+PPO_TASK_STEPS = 8         # [ppo-tasks] n_steps (the CLI: 128; 32 before
+                           # the bridge phases, 16 before the multi-device
+                           # phases)
+PPO_EVAL_STEPS = 500       # [ppo-policy]'s eval
+PPO_WALK_EVAL_STEPS = 250  # [ppo-walk]'s eval (500 before the multi-device
+                           # phases)
 POLICY_MIN_STEPS = 250     # the committed walk policy stays upright so long
 POLICY_MIN_X = 0.5         # and goes so far forward [m]
 PPO_OUT = os.path.join(ROOT, "runs", "torch_smoke")   # gitignored
 STUDENT_MIN_X = 0.15       # tests/test_distill.py's forward gate [m]
 # [mpc-bridge], [student-bridge], [gait-replay]: the robot bridge over the
 # wire (apps/mpc_bridge.py) against two firmware simulators on loopback
-BRIDGE = dict(lag=3, ticks=150, samples=256)  # make_bridge, 50 Hz ticks
+BRIDGE = dict(lag=3, ticks=100, samples=256)  # make_bridge, 50 Hz ticks
+                           # (150 before the multi-device phases)
 BRIDGE_PORT = 19645        # telemetry port; the two firmware sims on +1, +2
 STUDENT_BRIDGE_PORT = 19745
 BRIDGE_RMSE_DEG = 8.0      # tests/test_mpc_bridge.py's joint tracking gate
 TWIN_TICKS = 50            # twin advances timed alone
 TWIN_EQ_TICKS = 3          # twin graph vs eager on the same angles
-STREAM_AB_TICKS = 100      # plain arm, the twin's stream alternating
+STREAM_AB_TICKS = 50       # plain arm, the twin's stream alternating (100
+                           # before the multi-device phases)
 STUDENT_BRIDGE_T = 10      # scripts/torch_cmd_student_bridge.py --smoke
 GAIT_EQ_SUBSTEPS = 130     # one 128-substep chunk and two single substeps
 GAIT_Z_MIN = 0.03          # tests/test_golden_gait_replay.py:203's gate
+# [sharded-1], [sharded-2] (ROADMAP M14): scripts/bench_suite.py config 6 at
+# full width (Go1 flat, trot_cost at 0.5 m/s and 0.265 m, K=256 per rank,
+# H=25, 2 x 10 ms on K1, sigma 0.12, temperature 0.3), cut in depth only
+SHARDED_SOLVES = 5         # config-6 solves a side and per rank
+SHARDED_TICKS = 20         # make_mpc(mesh=) ticks eager and replayed
+SHARDED_ILQR = dict(horizon=50, iterations=1)  # bench 3's solve: 3
+                           # iterations
+SHARDED_PPO_STEPS = 8      # the walk chunk at world size 1 (the CLI: 128)
+SHARDED_RANKS = 2          # two ranks share the one card over gloo
+SHARDED_REF = dict(K=SHARDED_RANKS * 256, dt=0.01, n=2)  # one-process solve
+SHARDED_TOL = 1e-5         # rank 0 vs the one-process solve (sum order)
+SCAN_TOL = 2e-4            # sharded_suffix_scan vs the unsharded scan
+SHARDED_TIMEOUT_S = 300    # the spawned ranks, rendezvous included
+
+
+def free_port():
+    """A TCP port on localhost that no socket holds now (bind port 0)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def log(msg):
@@ -554,6 +620,12 @@ class Smoke:
         self.check("flat bridge predictor", dog, PLANT, False, False,
                    random_batch(dog, PLANT["K"], on_ground=True) + none,
                    exclusive=True)
+        # [sharded-2]'s one-process reference: config 6 at K = 2 x 256; its
+        # launches are counted by that phase alone (bench 5's expert shares
+        # the shape)
+        self.check("flat sharded reference", go1, SHARDED_REF, False, False,
+                   random_batch(go1, SHARDED_REF["K"]) + none,
+                   exclusive=True)
         # the launch counter keys by shape, not model: bench 5's OpenDOG
         # plant counts under the Go1 plant's row
         self.check("flat bench5 plant", dog, DISTILL_PLANT, False, False,
@@ -592,10 +664,15 @@ class Smoke:
         if launches != want:
             raise RuntimeError(f"[{label}] kernel launches {launches} != "
                                f"{want}")
+        self.attribute(launches, rows)
+        return out
+
+    def attribute(self, launches, rows=None):
+        """Adds the counts of a path's run to the kernel records of their
+        shape (to the named records alone with ``rows``)."""
         for name, rec in self.records.items():
             if (name in rows) if rows is not None else not rec["exclusive"]:
                 rec["launches"] += launches.get(rec["key"], 0)
-        return out
 
     def graph_matches(self, label, step, gstep, first, n=None,
                       calls=EQ_STEPS):
@@ -1040,8 +1117,8 @@ class Smoke:
             "ilqr", ecycle, plant1, U1), {})
         wall_g, plant_g, U_g, traj_g = g["cycles"][0]
         wall_e, plant_e, U_e, traj_e = e
-        self.same_bits("ilqr", "the eager cycle and the first timed graph "
-                       "cycle", dict(traj_g, plant_qpos=plant_g.qpos,
+        self.same_bits("ilqr", "graph vs eager, the eager cycle and the "
+                       "first timed graph cycle", dict(traj_g, plant_qpos=plant_g.qpos,
                                      plant_qvel=plant_g.qvel, U_next=U_g),
                        dict(traj_e, plant_qpos=plant_e.qpos,
                             plant_qvel=plant_e.qvel, U_next=U_e))
@@ -1069,18 +1146,16 @@ class Smoke:
         return wall, plant, U, traj
 
     def same_bits(self, label, what, a, b):
-        """Every tensor of ``a`` equals its namesake in ``b`` bit for
-        bit."""
+        """Every tensor of ``a`` equals its namesake in ``b`` bit for bit;
+        ``what`` names the two sides."""
         torch = self.torch
         differ = {k: float((a[k] - b[k]).abs().nan_to_num(
                       nan=float("inf")).max())
                   for k in a if not torch.equal(a[k], b[k])}
         verdict = f"DIFFER, max abs {differ}" if differ else "equal bit for bit"
-        log(f"[{label}] graph vs eager, {what}: {', '.join(sorted(a))} "
-            f"{verdict}")
+        log(f"[{label}] {what}: {', '.join(sorted(a))} {verdict}")
         if differ:
-            raise RuntimeError(f"[{label}] the graph differs from the eager "
-                               f"path: {differ}")
+            raise RuntimeError(f"[{label}] {what} differ: {differ}")
 
     def ilqr_trot(self):
         """bench 3b (scripts/bench_suite.py:328-394): Go1 trotting under an
@@ -1123,7 +1198,8 @@ class Smoke:
                                        run, {})
             log(f"[ilqr-trot] one-iteration solve, {side}: "
                 f"{sides[side][0]:.3f} s (graph: with its captures)")
-        self.same_bits("ilqr-trot", "the first solve's first iteration",
+        self.same_bits("ilqr-trot",
+                       "graph vs eager, the first solve's first iteration",
                        sides["graph"][1], sides["eager"][1])
         cycle = make_ilqr_tracker(m, cost, icfg, track_ticks=25,
                                   plant_substeps=10, u_ref_fn=u_ref,
@@ -1591,8 +1667,8 @@ class Smoke:
             sides[side] = dict(obs=obs, labels=labels, plant_qpos=p2.qpos,
                                plant_qvel=p2.qvel, plant_time=p2.time,
                                nominal=ms2.nominal, **trace)
-        self.same_bits(label, f"the first {EQ} collect ticks on the same "
-                       "normals and drive masks", sides["graph"],
+        self.same_bits(label, f"graph vs eager, the first {EQ} collect "
+                       "ticks on the same normals and drive masks", sides["graph"],
                        sides["eager"])
         e, g = (1e3 * walls[(side, 1)] / EQ for side in ("eager", "graph"))
         log(f"[{label}] ms per collect tick: eager {e:.3f}, graph {g:.3f} "
@@ -2232,7 +2308,7 @@ class Smoke:
         return rec
 
     # -- profile ----------------------------------------------------------
-    def profile(self, label, tick, carry, n=10):
+    def profile(self, label, tick, carry, n=PROFILE_TICKS):
         """Device busy share and kernel time by name over ``n`` ticks.  Only
         the profiler's own failures are caught; errors of the ticks
         propagate."""
@@ -2346,6 +2422,354 @@ class Smoke:
         log(f"[profile] geom_local_planes alone: {host_ms:.4f} ms per call "
             f"(host clock), {ev_ms:.4f} ms (CUDA events), {launches} kernel "
             f"launches per call; 2 calls per terrain tick")
+
+    # -- multi-device (ROADMAP M14) ----------------------------------------
+    def sharded_one(self):
+        """[sharded-1]: the multi-device layer at world size 1 in this
+        process, on an NCCL group on the card: bench_suite config 6's
+        sharded solve, the sharded MPC tick with its all_reduce captured in
+        a CUDA graph, the horizon-sharded iLQR pieces and a data-parallel
+        PPO chunk, each equal to its unsharded counterpart bit for bit."""
+        torch = self.torch
+        import torch.distributed as dist
+        from opendog_tpu_torch.parallel import initialize_distributed
+        cuda = self.dev.type == "cuda"
+        initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                               device=None if cuda else "cpu")
+        try:
+            backend = dist.get_backend()
+            log(f"[sharded-1] initialize_distributed at world size 1: "
+                f"{backend}")
+            if cuda and backend != "nccl":
+                raise RuntimeError(f"[sharded-1] backend {backend}, not nccl")
+            return dict(solve=self.sharded_solves(), mpc=self.sharded_mpc(),
+                        ilqr=self.sharded_ilqr(), ppo=self.sharded_ppo())
+        finally:
+            dist.destroy_process_group()
+
+    def sharded_solves(self):
+        """Config 6's sample-sharded solve on a one-rank mesh against
+        make_solver, on the same normals, receding for SHARDED_SOLVES
+        solves from Go1's home state."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.parallel import sample_mesh
+        from opendog_tpu_torch.physics import make_state
+        from opendog_tpu_torch.solvers import mppi
+        m, cost, cfg = config6(dev, ROLLOUT["K"])
+        mesh = sample_mesh(1, device=dev)
+        st, ms0 = make_state(m, "home"), mppi.init_state(m, cfg)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        normals = [torch.randn((cfg.num_samples, cfg.horizon, m.nu),
+                               generator=gen, device=dev)
+                   for _ in range(SHARDED_SOLVES)]
+        want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"]):
+                cfg.horizon * SHARDED_SOLVES}
+        out, res = {}, {}
+        for side, kw in (("plain", dict(device=dev)),
+                         ("sharded", dict(mesh=mesh))):
+            solve = mppi.make_solver(m, cost, cfg, **kw)
+            solve(st, ms0, None, normals[0])  # warm-up
+            torch.cuda.synchronize()
+
+            def run():
+                ms, outs = ms0, []
+                t0 = time.perf_counter()
+                for n in normals:
+                    ctrl, ms, stats = solve(st, ms, None, n)
+                    outs.append(dict(ctrl=ctrl, nominal=ms.nominal, **stats))
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, outs
+
+            wall, res[side] = self.counted(f"sharded-1 {side} solve", run,
+                                           want)
+            out[f"{side}_ms_per_solve"] = 1e3 * wall / SHARDED_SOLVES
+        self.same_bits("sharded-1", f"{SHARDED_SOLVES} sharded solves vs "
+                       "make_solver's", stacked(torch, res["sharded"]),
+                       stacked(torch, res["plain"]))
+        from opendog_tpu_torch.parallel import collectives
+        x = torch.zeros(1, cfg.horizon * m.nu + 3, device=dev)
+        collectives.psum(x, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            collectives.psum(x, mesh)
+        torch.cuda.synchronize()
+        out["psum_ms"] = 10.0 * (time.perf_counter() - t0)
+        log(f"[sharded-1] config 6 (K={cfg.num_samples}, H={cfg.horizon}, "
+            f"{cfg.n_substeps} x {cfg.rollout_dt} s on K1) eager ms/solve: "
+            f"sharded {out['sharded_ms_per_solve']:.3f}, make_solver "
+            f"{out['plain_ms_per_solve']:.3f} (same call, {SHARDED_SOLVES} "
+            f"solves each); one eager psum of the update's (1, "
+            f"{x.shape[1]}) buffer {out['psum_ms']:.4f} ms (host clock, 100 "
+            "calls)")
+        return out
+
+    def sharded_mpc(self):
+        """make_mpc(mesh=sample_mesh(1)): SHARDED_TICKS ticks eager, then as
+        many replayed from the CUDA graph that holds the NCCL all_reduce,
+        on the same normals: equal bit for bit, and to the unsharded
+        make_mpc's ticks, 26 launches per replay; the unsharded ticks, eager
+        and replayed, timed beside them in turns."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.parallel import sample_mesh
+        from opendog_tpu_torch.physics import make_state
+        from opendog_tpu_torch.solvers import graph_tick, make_mpc
+        m, cost, cfg = config6(dev, ROLLOUT["K"])
+        shape = (cfg.num_samples, cfg.horizon, m.nu)
+        fns, first = {}, None
+        for path, kw in (("sharded", dict(mesh=sample_mesh(1, device=dev))),
+                         ("plain", dict(device=dev))):
+            init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=PLANT["n"],
+                                     **kw)
+            first = init(torch.Generator(device=dev).manual_seed(0),
+                         make_state(m, "home"))
+            t0 = time.perf_counter()
+            gtick = graph_tick(tick, first, torch.zeros(shape, device=dev))
+            torch.cuda.synchronize()
+            per_replay = dict(gtick.graph.launches)
+            log(f"[sharded-1] captured the {path} tick in "
+                f"{time.perf_counter() - t0:.3f} s: "
+                f"{graph_nodes(gtick.graph.graph)} graph nodes, launches per "
+                f"replay {per_replay}")
+            if sum(per_replay.values()) != cfg.horizon + 1:
+                raise RuntimeError(f"[sharded-1] {per_replay} launches per "
+                                   f"replay, not {cfg.horizon + 1}")
+            fns[path] = dict(eager=tick, graph=gtick)
+        gen = torch.Generator(device=dev).manual_seed(20)
+        normals = [torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(SHARDED_TICKS)]
+        want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"]):
+                cfg.horizon * SHARDED_TICKS,
+                cs.launch_key(PLANT["K"], PLANT["n"]): SHARDED_TICKS}
+        res, out = {}, {}
+        for path, side in (("sharded", "eager"), ("plain", "eager"),
+                           ("plain", "graph"), ("sharded", "graph")):
+            fn = fns[path][side]
+
+            def run():
+                carry, outs = first, []
+                t0 = time.perf_counter()
+                for n in normals:
+                    carry, o = fn(carry, n)
+                    outs.append(dict(ctrl=o["ctrl"].clone(),
+                                     qpos=o["qpos"].clone(),
+                                     qvel=o["qvel"].clone(),
+                                     nominal=carry.solver.nominal.clone()))
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, outs
+
+            wall, res[path, side] = self.counted(
+                f"sharded-1 mpc {path} {side}", run, want)
+            out[f"{path}_{side}_ms_per_tick"] = 1e3 * wall / SHARDED_TICKS
+        self.same_bits("sharded-1", f"graph vs eager, {SHARDED_TICKS} "
+                       "sharded ticks", stacked(torch, res["sharded", "graph"]),
+                       stacked(torch, res["sharded", "eager"]))
+        self.same_bits("sharded-1", f"{SHARDED_TICKS} sharded ticks vs "
+                       "make_mpc's", stacked(torch, res["sharded", "eager"]),
+                       stacked(torch, res["plain", "eager"]))
+        z = torch.stack([o["qpos"][2] for o in res["sharded", "eager"]])
+        if not bool(((z > 0.12) & (z < 0.5)).all()):
+            raise RuntimeError("[sharded-1] mpc: trunk z left (0.12, 0.5)")
+        log("[sharded-1] make_mpc ms/tick, sharded (mesh=sample_mesh(1)) "
+            f"and unsharded, in turns: eager {out['sharded_eager_ms_per_tick']:.3f}"
+            f" / {out['plain_eager_ms_per_tick']:.3f}, graph "
+            f"{out['sharded_graph_ms_per_tick']:.3f} / "
+            f"{out['plain_graph_ms_per_tick']:.3f} (same call, "
+            f"{SHARDED_TICKS} ticks each)")
+        return out
+
+    def sharded_ilqr(self):
+        """The horizon-sharded Riccati sweep on a one-rank mesh: the
+        associative gains of a random LQR problem at bench 3's shapes (H=50,
+        Go1's nx=37, nu=12), and make_ilqr's solve of bench 3 at its
+        horizon, cut to one iteration, on the CUDA default (graphs=True:
+        the Riccati piece's graph holds sharded_suffix_scan's NCCL
+        all_reduces), each against the unsharded one, bit for bit: the
+        capturing solve and a replayed one."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.parallel import make_mesh
+        from opendog_tpu_torch.solvers import ILQRConfig, costs, ilqr
+        m = self.go1
+        mesh = make_mesh(1, "sp", device=dev)
+        H, nx, nu = 50, m.nq + m.nv, m.nu
+        rng = np.random.default_rng(50)
+
+        def t(*shape, scale=1.0):
+            return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+                np.float32)).to(dev)
+
+        eye_x = torch.eye(nx, device=dev)
+        W, Wu = t(H, nx, nx, scale=0.3), t(H, nu, nu, scale=0.3)
+        lqr = (t(H, nx, nx, scale=0.3) + eye_x, t(H, nx, nu, scale=0.3),
+               t(H, nx), t(H, nu, scale=0.1), W @ W.mT + eye_x,
+               Wu @ Wu.mT + torch.eye(nu, device=dev),
+               t(H, nu, nx, scale=0.1), t(nx), 2.0 * eye_x)
+        gains = [dict(zip(("k", "K", "dV"), ilqr.associative_lqr_gains(
+            *lqr, 1e-9, **kw))) for kw in ({}, dict(mesh=mesh))]
+        self.same_bits("sharded-1", f"sharded vs unsharded gains (H={H}, "
+                       f"nx={nx}, nu={nu})", gains[1], gains[0])
+        cost = costs.standing_cost(m, 0.265, m.key_qpos[0, 7:])
+        icfg = ILQRConfig(n_substeps=2, rollout_dt=0.01,
+                          riccati="associative", **SHARDED_ILQR)
+        s0 = self.settled_go1()
+        U0 = m.key_ctrl[0][None].repeat(icfg.horizon, 1)
+        solves = {side: ilqr.make_ilqr(m, cost, icfg, device=dev,
+                                       graphs=True, **kw)
+                  for side, kw in (("plain", {}), ("sharded", dict(mesh=mesh)))}
+        out = {}
+        for call in ("capture", "replay"):
+            res = {}
+            for side, solve in solves.items():
+                t0 = time.perf_counter()
+                U, X, stats = self.counted(f"sharded-1 ilqr {side} {call}",
+                                           lambda: solve(s0, U0), {})
+                torch.cuda.synchronize()
+                out[f"{side}_{call}_s"] = time.perf_counter() - t0
+                res[side] = dict(U=U, X=X, **stats)
+            self.same_bits("sharded-1", f"make_ilqr(mesh=) vs make_ilqr, "
+                           f"graphs, the {call} solve", res["sharded"],
+                           res["plain"])
+            if not float(res["sharded"]["cost"]) < float(
+                    res["sharded"]["initial_cost"]):
+                raise RuntimeError("[sharded-1] ilqr: the solve did not "
+                                   "improve")
+        log(f"[sharded-1] make_ilqr (H={icfg.horizon}, {icfg.iterations} "
+            f"iteration, graphs) s/solve, capture / replay: sharded "
+            f"{out['sharded_capture_s']:.3f} / {out['sharded_replay_s']:.3f}"
+            f", unsharded {out['plain_capture_s']:.3f} / "
+            f"{out['plain_replay_s']:.3f}")
+        return out
+
+    def sharded_ppo(self):
+        """make_sharded_ppo on a one-rank mesh against make_ppo: one walk
+        chunk cut in depth (SHARDED_PPO_STEPS steps of 16 envs), its rollout
+        step replayed from a CUDA graph, from the same generator seed:
+        parameters, metrics, env states and observations equal bit for
+        bit."""
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.envs.base import tree_leaves
+        from opendog_tpu_torch.parallel import env_mesh, make_sharded_ppo
+        from opendog_tpu_torch.rl.ppo import Hyper, PPOConfig, make_ppo
+        from opendog_tpu_torch.train import TASKS, build
+        cfg = PPOConfig(num_envs=16, n_steps=SHARDED_PPO_STEPS, num_epochs=2,
+                        minibatch_size=16 * SHARDED_PPO_STEPS,
+                        loss=TASKS["walk"]["loss"])
+        res, out = [], {}
+        for side in ("plain", "sharded"):
+            _, env, net = build("walk", dev)
+            init, chunk = (make_ppo(env, net, cfg, dev) if side == "plain"
+                           else make_sharded_ppo(env, net, cfg,
+                                                 env_mesh(1, device=dev)))
+            state = init(torch.Generator(device=dev).manual_seed(0))
+            t0 = time.perf_counter()
+            state, metrics = self.counted(
+                f"sharded-1 ppo {side}",
+                lambda: chunk(state, Hyper(lr=1e-4, ent_coef=0.002)), {})
+            out[f"{side}_chunk_s"] = time.perf_counter() - t0
+            res.append(dict(**{k: v.detach() for k, v in state.params.items()},
+                            **metrics, last_obs=state.last_obs,
+                            **{f"env_state[{i}]": x for i, x in enumerate(
+                                tree_leaves(state.env_states))}))
+        self.same_bits("sharded-1", "make_sharded_ppo vs make_ppo", res[1],
+                       res[0])
+        log(f"[sharded-1] walk chunk (16 envs x {SHARDED_PPO_STEPS} steps, "
+            f"graph rollout, capture included) s: sharded "
+            f"{out['sharded_chunk_s']:.3f}, make_ppo {out['plain_chunk_s']:.3f}")
+        return out
+
+    def sharded_two(self):
+        """[sharded-2]: two ranks on the one card over gloo, started with
+        the spawn method (CUDA is live here); each loads the kernel library
+        built above.  Each rank runs SHARDED_SOLVES config-6 solves at
+        K_local=256 and the blocked suffix scan; the ranks' outputs must be
+        the same bits, rank 0's match a one-process K=512 solve on the same
+        normals from the same nominal within SHARDED_TOL (each solve) and
+        the scan the unsharded one within SCAN_TOL."""
+        import tempfile
+        import torch.multiprocessing as torch_mp
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import make_state
+        from opendog_tpu_torch.solvers import ilqr, mppi
+        n, K = SHARDED_RANKS, ROLLOUT["K"]
+        m, cost, cfg = config6(dev, K * n)
+        gen = torch.Generator().manual_seed(26)
+        normals = torch.randn((SHARDED_SOLVES, K * n, cfg.horizon, m.nu),
+                              generator=gen)
+        elems = random_vf_elems(np.random.default_rng(51), 51, m.nq + m.nv)
+        device = None if dev.type == "cuda" else "cpu"
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(dict(normals=normals, elems=elems),
+                       os.path.join(tmp, "inputs.pt"))
+            t0 = time.perf_counter()
+            ctx = torch_mp.start_processes(
+                sharded_rank, args=(n, f"127.0.0.1:{free_port()}", tmp,
+                                    device),
+                nprocs=n, join=False, start_method="spawn")
+            try:
+                while not ctx.join(timeout=5):
+                    if time.perf_counter() - t0 > SHARDED_TIMEOUT_S:
+                        raise RuntimeError("[sharded-2] the ranks did not end "
+                                           f"in {SHARDED_TIMEOUT_S} s")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                     for r in range(n)]
+        wall = time.perf_counter() - t0
+        want = {cs.launch_key(K, ROLLOUT["n"]): cfg.horizon * SHARDED_SOLVES}
+        for r, res in enumerate(ranks):
+            log(f"[sharded-2] rank {r} kernel launches: {res['launches']}")
+            if res["launches"] != want:
+                raise RuntimeError(f"[sharded-2] rank {r}: launches "
+                                   f"{res['launches']} != {want}")
+            self.attribute(res["launches"])
+        for r in range(1, n):
+            self.same_bits("sharded-2", f"rank {r} vs rank 0",
+                           stacked(torch, ranks[r]["outs"]),
+                           stacked(torch, ranks[0]["outs"]))
+        # the one-process solve of all K * n samples on the same normals,
+        # each from the nominal that rank 0's solve started from
+        solve = mppi.make_solver(m, cost, cfg, device=dev)
+        st = make_state(m, "home")
+        starts = [mppi.MPPIState(nominal=o["start"].to(dev))
+                  for o in ranks[0]["outs"]]
+        solve(st, starts[0], None, normals[0].to(dev))  # warm-up
+        torch.cuda.synchronize()
+
+        def run():
+            outs = []
+            for ms, x in zip(starts, normals):
+                ctrl, ms, stats = solve(st, ms, None, x.to(dev))
+                outs.append(dict(ctrl=ctrl.cpu(), nominal=ms.nominal.cpu()))
+            return outs
+
+        ref = self.counted("sharded-2 one-process reference", run,
+                           {cs.launch_key(K * n, ROLLOUT["n"]):
+                            cfg.horizon * SHARDED_SOLVES},
+                           rows=["flat sharded reference"])
+        err = max(float((a[k] - b[k]).abs().max())
+                  for a, b in zip(ranks[0]["outs"], ref)
+                  for k in ("ctrl", "nominal"))
+        full = ilqr._suffix_scan(tuple(e.to(dev) for e in elems))
+        scan_err = max(float((a.to(dev) - b).abs().max())
+                       for a, b in zip(ranks[0]["scan"], full))
+        per_solve = [float(np.median(res["ms"])) for res in ranks]
+        log(f"[sharded-2] {n} ranks over gloo on one card ({nvidia_smi_line()}"
+            f"), {wall:.1f} s with the spawn: config 6 at K_local={K} "
+            f"(K={K * n}), median ms/solve per rank {per_solve}; rank 0 vs "
+            f"the one-process K={K * n} solve from the same nominal: max abs "
+            f"{err:.3e} "
+            f"(tolerance {SHARDED_TOL:.0e}); sharded_suffix_scan (L=51, "
+            f"nx={m.nq + m.nv}) vs the unsharded scan: max abs "
+            f"{scan_err:.3e} (tolerance {SCAN_TOL:.0e})")
+        if not err <= SHARDED_TOL:
+            raise RuntimeError(f"[sharded-2] rank 0 vs one process: {err}")
+        if not scan_err <= SCAN_TOL:
+            raise RuntimeError(f"[sharded-2] scan vs unsharded: {scan_err}")
+        return dict(ms_per_solve=per_solve, max_abs_vs_one_process=err,
+                    scan_max_abs=scan_err, wall_s=wall)
 
     # -- timing -----------------------------------------------------------
     def timing(self):
@@ -2467,6 +2891,98 @@ def read_metrics(run_dir):
         return [json.loads(line) for line in f]
 
 
+def stacked(torch, outs):
+    """A list of dicts of tensors (one per call) as one dict of stacks."""
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def config6(dev, K, horizon=25):
+    """scripts/bench_suite.py config 6 (258-271) on ``dev`` with K samples:
+    (Go1 flat, its trot cost at 0.5 m/s and 0.265 m, MPPIConfig)."""
+    from opendog_tpu_torch.assets import load_go1
+    from opendog_tpu_torch.solvers import MPPIConfig, costs
+    m = load_go1("flat", device=dev)
+    params = costs.TrotCostParams(desired_vel_xy=(0.5, 0.0),
+                                  target_height=0.265)
+    cost = costs.trot_cost(m, params, m.key_qpos[0, 7:], legs="go1")
+    return m, cost, MPPIConfig(horizon=horizon, num_samples=K, n_substeps=2,
+                               rollout_dt=0.01, noise_sigma=0.12,
+                               temperature=0.3)
+
+
+def random_vf_elems(rng, L, nx):
+    """Random value-function blocks (F, c, C, eta, J), C and J symmetric
+    positive semi-definite, as tests/test_sharded_solvers.py draws them."""
+    import torch
+
+    def n(*shape, scale):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32))
+
+    F = n(L, nx, nx, scale=0.3) + torch.eye(nx)
+    Wc, Wj = n(L, nx, nx, scale=0.2), n(L, nx, nx, scale=0.2)
+    return (F, n(L, nx, scale=0.3), Wc @ Wc.mT, n(L, nx, scale=0.3),
+            Wj @ Wj.mT)
+
+
+def sharded_rank(rank, n, addr, tmp, device):
+    """One rank of [sharded-2], started by spawn: gloo over ``addr``, the
+    card shared with the other ranks (or ``device="cpu"``).  Runs a
+    config-6 solve on each of the global normals of ``tmp/inputs.pt``
+    (solves, K, H, nu) with the launches counted, then the blocked suffix
+    scan of its blocks, writes ``tmp/rank{rank}.pt`` and leaves with
+    ``os._exit(0)``."""
+    import torch
+    import torch.distributed as dist
+    from opendog_tpu_torch.ops import cuda_step
+    from opendog_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh, sample_mesh)
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import ilqr, mppi
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(os.path.join(tmp, "inputs.pt"))
+    initialize_distributed(addr, n, rank, backend="gloo", device=device)
+    mesh = sample_mesh(n, device=device)
+    dev = mesh.device
+    normals = inp["normals"].to(dev)
+    m, cost, cfg = config6(dev, normals.shape[1], normals.shape[2])
+    solve = mppi.make_solver(m, cost, cfg, mesh=mesh)
+    st, ms = make_state(m, "home"), mppi.init_state(m, cfg)
+    solve(st, ms, None, normals[0])  # warm-up: loads the kernels
+    torch.cuda.synchronize()
+    cuda_step.LAUNCHES.clear()
+    outs, times = [], []
+    for x in normals:
+        start = ms.nominal.cpu()
+        t0 = time.perf_counter()
+        ctrl, ms, stats = solve(st, ms, None, x)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        outs.append({k: v.cpu() for k, v in dict(
+            ctrl=ctrl, nominal=ms.nominal, start=start,
+            **stats).items()})
+    launches = dict(cuda_step.LAUNCHES)
+    scan = ilqr.sharded_suffix_scan(
+        tuple(e.to(dev) for e in inp["elems"]),
+        make_mesh(n, "sp", device=device))
+    torch.save(dict(outs=outs, ms=times, launches=launches,
+                    scan=[x.cpu() for x in scan]),
+               os.path.join(tmp, f"rank{rank}.pt"))
+    # Leave without tearing the group down: a rank that destroys its group
+    # or exits normally while a peer still tears down (rank 0 hosts the TCP
+    # store) can abort in c10d's threads ("terminate called without an
+    # active exception").  After the barrier every rank is past its last
+    # collective; rank 0, the store's host, leaves last.
+    dist.barrier()
+    open(os.path.join(tmp, f"done{rank}"), "w").close()
+    t0 = time.monotonic()
+    while rank == 0 and time.monotonic() - t0 < 60 and not all(
+            os.path.exists(os.path.join(tmp, f"done{r}")) for r in range(n)):
+        time.sleep(0.01)
+    sys.stdout.flush()
+    os._exit(0)
+
+
 def loop_fields(lat, overruns, lag):
     """bench.py's host-loop fields of a paced loop's blocking times [s]."""
     p99 = float(np.percentile(lat, 99) * 1e3)
@@ -2508,9 +3024,10 @@ def ppo_phases(smoke):
     """The PPO training phases (train.py's path), in order."""
     return dict(graph=smoke.ppo_graph(),
                 walk=smoke.ppo_train("ppo-walk", "walk", PPO_WALK_CHUNKS,
-                                     eval_steps=PPO_EVAL_STEPS),
+                                     eval_steps=PPO_WALK_EVAL_STEPS),
                 walk_1024=smoke.ppo_train("ppo-walk-1024", "walk", 1,
-                                          n_envs=PPO_WIDE_ENVS),
+                                          n_envs=PPO_WIDE_ENVS,
+                                          num_epochs=PPO_WIDE_EPOCHS),
                 tasks=smoke.ppo_tasks(),
                 policy=smoke.ppo_policy())
 
@@ -2522,13 +3039,20 @@ def bridge_phases(smoke):
             "gait-replay": smoke.gait_replay()}
 
 
+def sharded_phases(smoke):
+    """The multi-device phases (parallel/, ROADMAP M14), in order."""
+    return {"sharded-1": smoke.sharded_one(),
+            "sharded-2": smoke.sharded_two()}
+
+
 def main(argv=None):
-    """``--only ppo`` (``bridge``) runs the device phase and the PPO
-    phases (the bridge phases) alone: a development aid, with no kernel
-    checked and no "ok" line."""
+    """``--only ppo`` (``bridge``, ``sharded``) runs the device phase and
+    the PPO phases (the bridge phases, the multi-device phases) alone: a
+    development aid, with no kernel checked and no "ok" line."""
     import argparse
     p = argparse.ArgumentParser()
-    p.add_argument("--only", choices=["ppo", "bridge"], default=None)
+    p.add_argument("--only", choices=["ppo", "bridge", "sharded"],
+                   default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
     import torch
@@ -2549,8 +3073,8 @@ def main(argv=None):
 
     if args.only is not None:
         smoke = Smoke(torch, dev)
-        res = (ppo_phases(smoke) if args.only == "ppo"
-               else bridge_phases(smoke))
+        res = dict(ppo=ppo_phases, bridge=bridge_phases,
+                   sharded=sharded_phases)[args.only](smoke)
         log(f"[summary] {args.only}: " + json.dumps(res))
         log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
         log(smi)
@@ -2568,22 +3092,31 @@ def main(argv=None):
     smoke = Smoke(torch, dev)
     occupancy(lib, cuda_step, smoke)
 
+    def mark(phases):
+        log(f"[wall] {phases} done at {time.perf_counter() - start:.1f} s")
+
     smoke.check_all()
     smoke.ops_check()
+    mark("build, check, ops-check")
     flat = smoke.flat_loop()
     terr = smoke.terrain_loop("terrain", "per_geom", TERRAIN_TICKS)
     smoke.terrain_loop("terrain-trunk", "trunk", TRUNK_TICKS)
     exact = smoke.terrain_loop("exact-terrain", "trunk", EXACT_TICKS,
                                terrain_plant="exact")
     deviation = smoke.deviation(terr, exact)
+    mark("main, terrain loops")
     smoke.ops_engine()
     smoke.payload_solves()
     smoke.batch_steps()
     smoke.pergeom_payload_solves()
+    mark("ops-engine, payload, batch")
     ilqr = smoke.ilqr()
+    mark("ilqr")
     ilqr_trot = smoke.ilqr_trot()
+    mark("ilqr-trot")
     realtime = smoke.realtime(flat)
     bridge = smoke.bridge(flat, realtime["host_loop_control_delay_ticks"])
+    mark("realtime, bridge")
     distill = smoke.distill("distill", 0.0, DISTILL["rounds"],
                             DISTILL["ticks"], DISTILL["eval_ticks"])
     distill_payload = smoke.distill("distill-payload",
@@ -2591,14 +3124,21 @@ def main(argv=None):
                                     PAYLOAD_DISTILL["ticks"], 0)
     bench5 = smoke.bench5()
     students = smoke.students()
+    mark("distill phases, student")
+    sharded = sharded_phases(smoke)
+    mark("sharded-1, sharded-2")
     bridge_out = bridge_phases(smoke)
+    mark("robot bridge phases")
     ppo = ppo_phases(smoke)
+    mark("ppo phases")
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
         smoke.profile(f"{label} graph", path["gtick"], path["carry"])
     smoke.planes_cost(terr["carry"].plant.qpos)
+    mark("profile")
     kernels = smoke.timing()
+    mark("timing")
 
     # ---- summary ----
     log("[summary] eager and graph ms per path (same call): "
@@ -2618,6 +3158,7 @@ def main(argv=None):
         {run: {k: v for k, v in rec.items() if k != "per_command"}
          for run, rec in students.items()}))
     log("[summary] robot bridge: " + json.dumps(bridge_out))
+    log("[summary] multi-device: " + json.dumps(sharded))
     log("[summary] ppo: " + json.dumps(ppo))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)

@@ -1,7 +1,8 @@
 """PPO: one engine, two reference behaviours.
 
-Port of ``opendog_tpu/rl/ppo.py`` for one device (the ``axis_name``
-data-parallel form is ROADMAP M14).
+Port of ``opendog_tpu/rl/ppo.py``, on one device or as one rank of a
+data-parallel learner (``make_ppo(..., mesh=)``, the JAX ``axis_name`` /
+``axis_size`` form; ``parallel.make_sharded_ppo`` builds it).
 
 ``loss="clip"``   the SB3 PPO configuration the reference trains with
                   (clipped surrogate, lr 1e-4, batch 512, 10 epochs, gamma
@@ -35,6 +36,7 @@ same.  The update stays eager.
 from __future__ import annotations
 
 import copy
+import gc
 import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
@@ -45,6 +47,7 @@ from torch.func import functional_call
 from ..device import resolve_device, use_full_fp32
 from ..envs.base import (Env, tree_copy_, tree_map, tree_to_dict,
                          where_done)
+from ..parallel import collectives
 from . import networks
 
 
@@ -123,14 +126,19 @@ class ChunkDraws:
     perms: torch.Tensor
 
 
-def draw_chunk(env: Env, config: PPOConfig, generator, device) -> ChunkDraws:
+def draw_chunk(env: Env, config: PPOConfig, generator, device,
+               shards: int = 1) -> ChunkDraws:
     """A chunk's draws from ``generator`` on ``device``: the normals, then
-    the reset draws, then the permutations."""
+    the reset draws, then the permutations.  For one rank of a learner of
+    ``shards`` ranks (``config`` local): the normals and reset draws of all
+    ``shards * num_envs`` envs, of which each rank takes its block, and the
+    permutations of the rank's own n_steps x num_envs samples (every rank
+    draws the same ones, as every JAX shard permutes with the same key)."""
     T, B = config.n_steps, config.num_envs
-    normals = torch.randn((T, B, env.action_dim), generator=generator,
-                          device=device)
-    resets = tree_map(lambda x: x.reshape((T, B) + x.shape[1:]),
-                      env.draw_reset(generator, T * B))
+    normals = torch.randn((T, B * shards, env.action_dim),
+                          generator=generator, device=device)
+    resets = tree_map(lambda x: x.reshape((T, B * shards) + x.shape[1:]),
+                      env.draw_reset(generator, T * B * shards))
     n = T * B
     perms = torch.stack([torch.randperm(n, generator=generator,
                                         device=device)
@@ -248,8 +256,18 @@ class _Rollout:
         current.wait_stream(side)
         tree_copy_(self.carry, saved)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._step()
+        # the cyclic collector is held off, as GraphedTick holds it: a
+        # collection inside the capture that frees another learner's graph
+        # (a train_chunk refers to itself, so a dropped one is cyclic
+        # garbage) invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self._step()
+        finally:
+            if collecting:
+                gc.enable()
 
     def run(self, i: int):
         """Step ``i`` of the chunk."""
@@ -267,7 +285,7 @@ class _Rollout:
 
 
 def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
-             device=None, graphs: Optional[bool] = None):
+             device=None, graphs: Optional[bool] = None, mesh=None):
     """Returns ``(init(generator, draws=None) -> TrainState,
     train_chunk(state, hyper, draws=None) -> (state, metrics))``.
 
@@ -285,7 +303,22 @@ def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
     ``train_chunk.compute_gae(params, traj, last_obs)`` is its GAE.
 
     ``graphs`` (default: on CUDA) replays the rollout step from a CUDA
-    graph; a CPU device with ``graphs=True`` raises."""
+    graph; a CPU device with ``graphs=True`` raises.
+
+    With ``mesh`` (the JAX ``axis_name`` / ``axis_size``, ``ppo.py:64-93``)
+    the chunk is one rank's part of one data-parallel learner:
+    ``config.num_envs`` and ``minibatch_size`` are this rank's, and
+    ``device`` is the mesh's.  The chunk's draws are the global ones
+    (``draw_chunk(..., shards=n)``), of which the rank takes its block of
+    envs (``_local_slice``, ``ppo.py:83-88``); the advantage moments are
+    ``pmean``-ed before normalising (``:193-201``); each minibatch's
+    gradients are ``pmean``-ed before ``clip_by_global_norm_`` and Adam
+    (``:230-234``), so every rank applies the same update; the metrics are
+    global means.  Each rank permutes only its own samples.  The rollout
+    step holds no collective, so it replays its graph on any group.  With
+    one rank the chunk equals the unsharded one bit for bit."""
+    if mesh is not None:
+        device = mesh.on_device(device)
     device = resolve_device(device)
     if graphs is None:
         graphs = device.type == "cuda"
@@ -300,7 +333,15 @@ def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
     n = T * B
     mb = min(config.minibatch_size, n)
     num_mb = n // mb
+    shards = 1 if mesh is None else mesh.size
+    first = 0 if mesh is None else mesh.index * B
     rollout = None
+
+    def global_mean(x):
+        """A mean over this rank's rows, then over the ranks (``pmean``);
+        without a mesh, the mean itself."""
+        m = torch.mean(x)
+        return m if mesh is None else collectives.pmean(m, mesh)
 
     def sync():
         if device.type == "cuda":
@@ -380,8 +421,17 @@ def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
                 total, parts = loss_fn(params, batch, hyper)
                 total.backward()
                 with torch.no_grad():
-                    clip_by_global_norm_([p.grad for p in leaves],
-                                         config.max_grad_norm)
+                    grads = [p.grad for p in leaves]
+                    if mesh is not None:
+                        # the gradient all-reduce: every rank applies the
+                        # same update, clipped after the mean as optax's
+                        # chain clips the pmean-ed gradient
+                        flat_g = collectives.pmean(torch.cat(
+                            [g.reshape(-1) for g in grads]), mesh)
+                        for g, v in zip(grads, flat_g.split(
+                                [g.numel() for g in grads])):
+                            g.copy_(v.reshape(g.shape))
+                    clip_by_global_norm_(grads, config.max_grad_norm)
                 opt.step()
                 aux.append(torch.stack([p.detach() for p in parts]))
         return torch.stack(aux)  # (epochs * num_mb, 3)
@@ -390,7 +440,13 @@ def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
                     draws: Optional[ChunkDraws] = None):
         nonlocal rollout
         if draws is None:
-            draws = draw_chunk(env, config, state.generator, device)
+            draws = draw_chunk(env, config, state.generator, device, shards)
+        if mesh is not None:
+            def block(x):
+                return x[:, first:first + B]
+            draws = ChunkDraws(block(draws.action_normals),
+                               tree_map(block, draws.reset_draws),
+                               draws.perms)
         if rollout is None:
             rollout = _Rollout(env, network, state.params, config, device,
                                graphs)
@@ -412,8 +468,10 @@ def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
         with torch.no_grad():
             advantages, returns = compute_gae(state.params, traj, last_obs)
             if config.normalize_advantage:
-                mu = torch.mean(advantages)
-                var = torch.mean(torch.square(advantages - mu))
+                # global moments across the ranks: the single learner's
+                # normalisation over the whole batch
+                mu = global_mean(advantages)
+                var = global_mean(torch.square(advantages - mu))
                 advantages = (advantages - mu) / (torch.sqrt(var) + 1e-8)
         flat = dict(obs=traj["obs"].reshape(n, -1),
                     action=traj["action"].reshape(n, -1),
@@ -426,20 +484,29 @@ def make_ppo(env: Env, network: networks.MLPActorCritic, config: PPOConfig,
                                  update_s=time.perf_counter() - t1,
                                  capture_s=rollout.capture_s)
         with torch.no_grad():
-            ret_mu = torch.mean(returns)
-            ret_var = torch.mean(torch.square(returns - ret_mu))
-            actor_loss, value_loss, entropy = torch.mean(aux, dim=0)
+            ret_mu = global_mean(returns)
+            ret_var = global_mean(torch.square(returns - ret_mu))
+            means = torch.stack([
+                torch.mean(traj["reward"]),
+                torch.mean(traj["reward"].sum(0)),
+                torch.mean(traj["done"].to(torch.float32)),
+                *torch.mean(aux, dim=0),
+                torch.mean(traj["value"])])
+            if mesh is not None:
+                means = collectives.pmean(means, mesh)
+            (mean_reward, sum_reward, done_rate, actor_loss, value_loss,
+             entropy, mean_value) = means.unbind()
             metrics = dict(
-                mean_reward=torch.mean(traj["reward"]),
-                sum_reward_per_env=torch.mean(traj["reward"].sum(0)),
-                done_rate=torch.mean(traj["done"].to(torch.float32)),
+                mean_reward=mean_reward,
+                sum_reward_per_env=sum_reward,
+                done_rate=done_rate,
                 actor_loss=actor_loss,
                 value_loss=value_loss,
                 # critic residual over the target variance (1 - explained
                 # variance): scale-free, unlike value_loss
                 value_resid_frac=value_loss / (ret_var + 1e-8),
                 entropy=entropy,
-                mean_value=torch.mean(traj["value"]),
+                mean_value=mean_value,
             )
         new_state = TrainState(params=state.params, opt_state=state.opt_state,
                                env_states=env_states, last_obs=last_obs,

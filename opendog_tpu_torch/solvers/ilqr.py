@@ -1,8 +1,9 @@
 """iLQR / DDP: the shooting branch of the MPC engine (BASELINE config 3:
 whole-body MPC with a 1 s horizon, 1 Hz replan + 50 Hz tracking).
 
-Port of ``opendog_tpu/solvers/ilqr.py`` on one device (the horizon-sharded
-``sharded_suffix_scan`` waits for ROADMAP M14):
+Port of ``opendog_tpu/solvers/ilqr.py``, on one device or with the
+associative Riccati sweep sharded over the horizon on a mesh of ranks
+(``sharded_suffix_scan``, ``make_ilqr(..., mesh=)``):
 
 * the dynamics linearisations A_t, B_t of the whole horizon come from one
   ``torch.func.vmap(jacfwd)`` over the rollout, the cost expansion from
@@ -33,6 +34,7 @@ counterpart of the JAX package's jitted solve.
 from __future__ import annotations
 
 import collections
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -40,6 +42,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
 from ..device import resolve_device, use_cusolver, use_full_fp32
+from ..parallel import collectives
 from ..physics import State, Terrain, dynamics
 from .graph import GraphedTick
 
@@ -122,6 +125,51 @@ def _suffix_scan(elems):
     return tuple(e.flip(0) for e in out)
 
 
+def _pack(elems) -> torch.Tensor:
+    """(L, ...) value-function blocks as one (L, 3 nx^2 + 2 nx) tensor."""
+    return torch.cat([e.reshape(e.shape[0], -1) for e in elems], dim=1)
+
+
+def _unpack(flat: torch.Tensor, like):
+    """``_pack``'s inverse, the blocks shaped as ``like``'s."""
+    sizes = [e[0].numel() for e in like]
+    return tuple(x.reshape((flat.shape[0],) + tuple(e.shape[1:]))
+                 for x, e in zip(flat.split(sizes, dim=1), like))
+
+
+def sharded_suffix_scan(elems, mesh):
+    """The reverse associative scan of value-function blocks, sharded over
+    the horizon on ``mesh`` (one axis): the two-level blocked scan
+    of ``ilqr.py:82-128``.  Every rank takes the same global blocks (L,
+    ...), pads them with the identity to a multiple of n, runs the suffix
+    scan of its own block, gathers the n block totals (one ``all_gather``),
+    composes the n + 1 block aggregates redundantly, and finishes its block
+    with one combine with the product of all later blocks.  The finished
+    blocks are gathered again, so every rank returns the whole (L, ...)
+    scan; equal to ``_suffix_scan`` up to the order of the compositions, and
+    bit for bit at one rank."""
+    n, L = mesh.size, elems[0].shape[0]
+    ident = _vf_identity(elems[0].shape[-1], elems[0].dtype,
+                         elems[0].device)
+    pad = (-L) % n
+    if pad:
+        elems = tuple(torch.cat([e, i.expand((pad,) + i.shape)], dim=0)
+                      for e, i in zip(elems, ident))
+    b = (L + pad) // n
+    i = collectives.axis_index(mesh)
+    local = _suffix_scan(tuple(e[i * b:(i + 1) * b] for e in elems))
+    totals = _unpack(collectives.all_gather(
+        _pack(tuple(t[:1] for t in local)), mesh), local)
+    ext = tuple(torch.cat([g, e[None]], dim=0)
+                for g, e in zip(totals, ident))
+    # exclusive suffix of this block: the product of all later blocks
+    agg = tuple(a[i + 1].expand_as(e)
+                for a, e in zip(_suffix_scan(ext), local))
+    done = _vf_combine(local, agg)
+    comp = _unpack(collectives.all_gather(_pack(done), mesh), done)
+    return tuple(c[:L] for c in comp)
+
+
 def _cho_solve(Q: torch.Tensor, *rhs: torch.Tensor):
     """Solves ``Q z = r`` for each right-hand side through one Cholesky
     factor of ``Q`` (``cho_factor`` / ``cho_solve``); a vector ``r`` gives a
@@ -132,10 +180,13 @@ def _cho_solve(Q: torch.Tensor, *rhs: torch.Tensor):
                  for r in rhs)
 
 
-def associative_lqr_gains(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg):
+def associative_lqr_gains(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg,
+                          mesh=None):
     """O(log H)-depth LQR backward pass via associative value-function
     composition, standalone so that it can be held against the sequential
-    recursion.  Returns (k (H, nu), K (H, nu, nx), dV (H,))."""
+    recursion.  With ``mesh`` the horizon axis is sharded over its ranks
+    (:func:`sharded_suffix_scan`), every rank returning the whole result.
+    Returns (k (H, nu), K (H, nu, nx), dV (H,))."""
     nx, nu = A.shape[1], B.shape[2]
     eye_u = torch.eye(nu, dtype=A.dtype, device=A.device)
     R = luu + reg * eye_u[None]
@@ -154,7 +205,8 @@ def associative_lqr_gains(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg):
              torch.cat([C, zf], dim=0),
              torch.cat([eta, -vx[None]], dim=0),
              torch.cat([J, vxx[None]], dim=0))
-    comp = _suffix_scan(elems)
+    comp = (_suffix_scan(elems) if mesh is None
+            else sharded_suffix_scan(elems, mesh))
     Vxx_next = comp[4][1:]
     Vx_next = -comp[3][1:]
 
@@ -252,21 +304,32 @@ def make_ilqr(
     terrain: Optional[Terrain] = None,
     device=None,
     graphs: Optional[bool] = None,
+    mesh=None,
 ):
     """Build ``solve(state, U_init) -> (U*, X*, stats)`` on ``device`` (CUDA
-    unless the caller names another).  ``stats`` holds ``cost``,
-    ``initial_cost``, ``cost_trace`` (the cost after each iteration),
-    ``pick_trace`` (the index of the step size taken at each iteration, -1
-    where none improved) and the final gains ``k_ff`` / ``K_fb`` along the
-    returned trajectory, and ``line_search_costs`` (iterations, n_alpha), the
-    cost of each step size at each iteration.
+    unless the caller names another; with ``mesh``, the mesh's).  ``stats``
+    holds ``cost``, ``initial_cost``, ``cost_trace`` (the cost after each
+    iteration), ``pick_trace`` (the index of the step size taken at each
+    iteration, -1 where none improved) and the final gains ``k_ff`` /
+    ``K_fb`` along the returned trajectory, and ``line_search_costs``
+    (iterations, n_alpha), the cost of each step size at each iteration.
 
     ``graphs`` (default: on CUDA) replays each piece of the solve from a
     CUDA graph captured at its first call; the results equal the eager
-    solve's bit for bit.  Only on CUDA: another device raises."""
+    solve's bit for bit.  Only on CUDA: another device raises.
+
+    ``mesh`` (one axis) shards the associative Riccati sweep
+    over the horizon (:func:`sharded_suffix_scan`); it needs
+    ``riccati="associative"``, and graphs of it need an NCCL group (a gloo
+    mesh with graphs raises: pass ``graphs=False``)."""
     if config.riccati not in RICCATI:
         raise ValueError(f"riccati must be one of {RICCATI}, got "
                          f"{config.riccati!r}")
+    if mesh is not None:
+        if config.riccati != "associative":
+            raise ValueError("horizon sharding needs the associative "
+                             "Riccati sweep (riccati='associative')")
+        device = mesh.on_device(device)
     if config.precision != "highest":
         raise ValueError("the port runs float32 products in full float32 "
                          f"only (precision='highest'), got "
@@ -276,6 +339,8 @@ def make_ilqr(
         graphs = device.type == "cuda"
     if graphs and device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+    if graphs:
+        collectives.require_capturable(mesh, "make_ilqr(graphs=True)")
     use_full_fp32()
     if device.type == "cuda":
         use_cusolver()
@@ -344,8 +409,8 @@ def make_ilqr(
                 hess_v(X[-1], times[-1]))
 
     # ---------------- backward passes ------------------------------------
-    gains = (associative_lqr_gains if config.riccati == "associative"
-             else sequential_lqr_gains)
+    gains = (functools.partial(associative_lqr_gains, mesh=mesh)
+             if config.riccati == "associative" else sequential_lqr_gains)
 
     def backward(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg):
         k, K, dV = gains(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg)

@@ -25,6 +25,7 @@ import torch
 
 from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
+from ..parallel.collectives import require_capturable
 from ..physics import State, Terrain, dynamics, make_state
 from . import ilqr as ilqr_mod, mppi
 from .graph import GraphedTick
@@ -92,6 +93,7 @@ def make_mpc(
     terrain: Optional[Terrain] = None,
     terrain_plant: str = "exact",
     plane_mode: str = "trunk",
+    mesh=None,
 ):
     """Returns ``(init(generator, physics_state) -> carry,
     tick(carry, normals=None) -> (carry, info),
@@ -110,17 +112,26 @@ def make_mpc(
     bilinear contact (``terrain_plant="exact"``, the default, as in the JAX
     package) or the per-geom plane kernel (``"kernel"``).  With
     ``config.engine="ops"`` both the rollouts and the plant run the
-    op-graph step (see :func:`_make_plant_step`)."""
+    op-graph step (see :func:`_make_plant_step`).
+
+    ``mesh`` shards the solve's K samples over its ranks
+    (``mppi.make_solver(..., mesh=)``; the device is then the mesh's): each
+    tick's generator draws the global normals on every rank, and the plant
+    runs redundantly on every rank on the same bits, as the replicated
+    plant under ``shard_map`` does."""
     if terrain_plant not in TERRAIN_PLANTS:
         raise ValueError(f"terrain_plant must be one of {TERRAIN_PLANTS}, "
                          f"got {terrain_plant!r}")
+    if mesh is not None:
+        device = mesh.on_device(device)
     device = resolve_device(device)
     use_full_fp32()
     model = model.to(device)
     if terrain is not None:
         terrain = terrain.to(device)
     solve = mppi.make_solver(model, step_cost, config, device=device,
-                             terrain=terrain, plane_mode=plane_mode)
+                             terrain=terrain, plane_mode=plane_mode,
+                             mesh=mesh)
     plant_step = _make_plant_step(model, plant_substeps, device, terrain,
                                   config.engine, terrain_plant)
     rng = model.actuator_ctrlrange
@@ -167,6 +178,7 @@ def make_mpc(
         traj = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         return carry, traj
 
+    tick.mesh = mesh
     return init, tick, run
 
 
@@ -178,7 +190,10 @@ def graph_tick(tick: Callable, carry: MPCCarry, normals: torch.Tensor):
     ``normals`` it draws them with the carry's generator into the graph's
     static buffer before the replay, as ``tick`` draws them.  The returned
     carry and info are static tensors that the next call overwrites:
-    clone what you keep.  Raises on a device other than CUDA."""
+    clone what you keep.  Raises on a device other than CUDA, and for a
+    tick sharded over a gloo group (a graph cannot hold its collectives; on
+    an NCCL group the capture holds them)."""
+    require_capturable(getattr(tick, "mesh", None), "graph_tick")
     lagged = carry.ctrl_queue is not None
 
     def fn(qpos, qvel, time, nominal, normals, *queue):
@@ -225,6 +240,7 @@ def _compensated_solver(solve: Callable, plant_step: Callable, lag: int):
         stats = dict(stats, queue=torch.cat([queue[1:], ctrl[None]], dim=0))
         return ctrl, ms, stats
 
+    solve_c.mesh = solve.mesh
     return solve_c
 
 
@@ -319,26 +335,36 @@ class RealtimeController:
     plants (benchmark mode's internal plant, the compensated solve's
     roll-forward) are the op-graph step with exact bilinear contact, the
     JAX class's default ``terrain_plant="exact"``.
+
+    ``mesh`` shards each solve's K samples over its ranks
+    (``mppi.make_solver(..., mesh=)``), each rank running the same
+    controller on its own card; the graphs then capture its collectives,
+    which only an NCCL group allows: on CUDA a gloo mesh raises.
     """
 
     def __init__(self, model, step_cost: Callable, config: mppi.MPPIConfig,
                  terrain: Optional[Terrain] = None, lag: int = 1,
                  plant_substeps: int = 10,
                  generator: Optional[torch.Generator] = None,
-                 compensate: bool = False, device=None):
+                 compensate: bool = False, device=None, mesh=None):
         self.lag = max(0, int(lag))
         self.compensate = bool(compensate) and self.lag > 0
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if mesh is None else mesh.on_device(device))
         use_full_fp32()
         self.model = model.to(self.device)
         self.terrain = None if terrain is None else terrain.to(self.device)
         self._step_cost, self._config = step_cost, config
+        self._mesh = mesh
         self._plant_substeps = plant_substeps
         self._graphs = self.device.type == "cuda"
+        if self._graphs:
+            require_capturable(mesh, "RealtimeController")
         self._generator = (generator if generator is not None else
                            torch.Generator(device=self.device).manual_seed(0))
         solve = mppi.make_solver(self.model, step_cost, config,
-                                 device=self.device, terrain=self.terrain)
+                                 device=self.device, terrain=self.terrain,
+                                 mesh=mesh)
         if self.compensate:
             solve = _compensated_solver(
                 solve, _make_plant_step(self.model, plant_substeps,
@@ -378,7 +404,7 @@ class RealtimeController:
                 plant_substeps=self._plant_substeps,
                 ctrl_lag=self.lag if self.compensate else 0,
                 lag_compensation=self.compensate, device=self.device,
-                terrain=self.terrain)
+                terrain=self.terrain, mesh=self._mesh)
         self._carry = self._init(self._generator, physics_state)
         if first and self._graphs:
             self._tick = graph_tick(self._tick, self._carry,

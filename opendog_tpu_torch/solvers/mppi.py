@@ -1,12 +1,13 @@
 """MPPI (Model Predictive Path Integral) solver on the substep kernel or
 the op-graph physics step.
 
-Port of ``opendog_tpu/solvers/mppi.py`` on one device (no sample mesh:
-ROADMAP M14), on flat ground or on a terrain, with or without a carried
-payload, a runtime command, an anchor to an action reference and a
-terminal cost.  One solve samples K smoothed, clipped control plans around
-the nominal, rolls all of them out, and moves the nominal to their
-softmax-weighted mean.  Two rollout engines, named after what runs them
+Port of ``opendog_tpu/solvers/mppi.py``, on flat ground or on a terrain,
+with or without a carried payload, a runtime command, an anchor to an
+action reference and a terminal cost, on one device or with the K samples
+sharded over a mesh of ranks (``make_solver(..., mesh=)``).  One solve
+samples K smoothed, clipped control plans around the nominal, rolls all of
+them out, and moves the nominal to their softmax-weighted mean.  Two
+rollout engines, named after what runs them
 (the JAX package names them after its backends):
 
 * ``engine="kernel"`` (JAX ``"pallas"``): the substep kernel, one launch
@@ -27,8 +28,13 @@ those bits.  ``solve`` therefore takes the ``(K, H, nu)`` (batched: ``(S,
 K, H, nu)``) standard-normal draw as an argument (``normals``) or draws it
 on the device from a ``torch.Generator``.
 
+With ``mesh`` (``parallel.sample_mesh``) every rank takes the same global
+(K, H, nu) normals and rolls out its block of ``K / n`` samples, and the
+softmax-weighted update reduces over the ranks with ``pmin`` and ``psum``
+(``parallel.collectives``), as the JAX solve does under ``shard_map``.
+
 On the card :func:`graph_solve` replays a solve, single or batched, from a
-CUDA graph.
+CUDA graph; with a mesh, only on an NCCL group.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 
 from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
+from ..parallel import collectives
 from ..physics import State, Terrain, dynamics
 from .costs import ref_takes_cmd
 from .graph import GraphedTick
@@ -83,12 +90,13 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
                terrain: Optional[Terrain], with_payload: bool,
                plane_mode: str, terminal_cost: Optional[Callable],
                with_command: bool, u_ref_fn: Optional[Callable],
-               anchor_w: float):
+               anchor_w: float, mesh=None):
     """Checks the options and builds ``core(qpos (S, nq), qvel (S, nv), time
-    (S,), nominal (S, H, nu), normals (S, K, H, nu), payload (S,) or None,
-    command (S, c) or None) -> (ctrl (S, nu), shifted nominal (S, H, nu),
-    stats of (S,))``, the solve of S scenarios at once.  Returns
-    ``(core, device)``."""
+    (S,), nominal (S, H, nu), normals (S, K_local, H, nu), payload (S,) or
+    None, command (S, c) or None) -> (ctrl (S, nu), shifted nominal (S, H,
+    nu), stats of (S,))``, the solve of S scenarios at once.  With ``mesh``
+    the K samples are spread over its ranks, K_local = K / n on each, and
+    the update reduces over the ranks.  Returns ``(core, device)``."""
     if config.engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES} (the JAX "
                          "package's 'pallas' and 'xla'), got "
@@ -111,6 +119,7 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
     ctrlrange = model.actuator_ctrlrange
     lo, hi = ctrlrange[:, 0], ctrlrange[:, 1]
     H, K, nu = config.horizon, config.num_samples, model.nu
+    K_local = K // (1 if mesh is None else mesh.size)
     dt = float(config.rollout_dt) if config.rollout_dt else model.timestep
     dt_tick = dt * config.n_substeps
     # plan slot k applies from state.time + k * dt_tick (the distiller's
@@ -136,9 +145,9 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
         return lambda st, c, p: step_cost(st, c, p, command)
 
     def lanes(x: torch.Tensor) -> torch.Tensor:
-        """(S, ...) per-scenario rows -> (S K, ...) per-lane rows."""
-        return x[:, None].expand(x.shape[0], K, *x.shape[1:]).reshape(
-            x.shape[0] * K, *x.shape[1:])
+        """(S, ...) per-scenario rows -> (S K_local, ...) per-lane rows."""
+        return x[:, None].expand(x.shape[0], K_local, *x.shape[1:]).reshape(
+            x.shape[0] * K_local, *x.shape[1:])
 
     def local_planes(qpos: torch.Tensor) -> torch.Tensor:
         """Contact plane rows of the rollouts, (rows, S K): the terrain's
@@ -234,28 +243,39 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
 
     def weighted_update(candidates, costs):
         """Softmax-weighted nominal of each scenario, reduced over its K
-        lanes."""
+        lanes; with a mesh, ``pmin`` of the best cost and one ``psum`` of
+        the weighted sums over the ranks (``mppi.py:304-330``)."""
         beta = torch.min(costs, dim=1).values
+        if mesh is not None:
+            beta = collectives.pmin(beta, mesh)
         w_un = torch.exp(-(costs - beta[:, None]) / config.temperature)
         denom = torch.sum(w_un, dim=1)
-        new_nominal = (torch.einsum("sk,skhu->shu", w_un, candidates)
-                       / denom[:, None, None])
+        new_nominal = torch.einsum("sk,skhu->shu", w_un, candidates)
+        sum_cost = torch.sum(costs, dim=1)
+        sum_w2_un = torch.sum(torch.square(w_un), dim=1)
+        if mesh is not None:
+            S = costs.shape[0]
+            sums = collectives.psum(torch.cat(
+                [new_nominal.reshape(S, H * nu), denom[:, None],
+                 sum_cost[:, None], sum_w2_un[:, None]], dim=1), mesh)
+            new_nominal = sums[:, :H * nu].reshape(S, H, nu)
+            denom, sum_cost, sum_w2_un = sums[:, H * nu:].unbind(1)
         stats = dict(
             best_cost=beta,
-            mean_cost=torch.sum(costs, dim=1) / K,
+            mean_cost=sum_cost / K,
             # effective sample size of the normalised weights
-            ess=torch.square(denom) / torch.sum(torch.square(w_un), dim=1),
+            ess=torch.square(denom) / sum_w2_un,
         )
-        return new_nominal, stats
+        return new_nominal / denom[:, None, None], stats
 
     def core(qpos, qvel, time, nominal, normals, payload=None,
              command=None):
         S = qpos.shape[0]
         candidates = sample_candidates(nominal, normals)
-        flat = candidates.reshape(S * K, H, nu)
+        flat = candidates.reshape(S * K_local, H, nu)
         costs = rollout_costs(
             qpos, qvel, time, flat, payload,
-            None if command is None else lanes(command)).reshape(S, K)
+            None if command is None else lanes(command)).reshape(S, K_local)
         if anchored:
             costs = costs + anchor_w * torch.sum(torch.square(
                 candidates - ref_seq(time, command)[:, None]), dim=(2, 3))
@@ -307,10 +327,12 @@ def make_solver(
     with_command: bool = False,
     u_ref_fn: Optional[Callable] = None,
     anchor_w: float = 0.0,
+    mesh=None,
 ):
     """Build ``solve(physics_state, mppi_state, generator=None, normals=None
     [, payload][, command]) -> (ctrl, mppi_state', stats)`` on ``device``
-    (CUDA unless the caller names another).
+    (CUDA unless the caller names another; with ``mesh``, the mesh's
+    device).
 
     ``normals`` is the (K, H, nu) standard-normal draw before sigma,
     smoothing and clipping; when it is None the solve draws it with
@@ -337,12 +359,30 @@ def make_solver(
     the reference; ``u_ref_fn`` is ``(t)`` or, with ``with_command``,
     ``(t, cmd)`` (``costs.ref_takes_cmd``), batch-first.
 
+    With ``mesh`` (a one-axis ``parallel.Mesh``) the K samples are
+    sharded over its n ranks (``mppi.py:137-139``, ``:345-373``):
+    every rank takes the same global normals, drawn from one seeded
+    generator on every rank or passed in, and rolls out its block of K / n
+    (rank i: samples ``[i K / n, (i + 1) K / n)``, the JAX split of the
+    per-sample keys); the update takes ``pmin`` of the best cost and
+    ``psum`` of the weighted sums, and ``mean_cost`` divides by the global
+    K.  Every rank returns the same bits; with one rank the solve equals the
+    unsharded one bit for bit.  Raises where n does not divide K.
+
     A solve copies no host data to the device and reads nothing back, so
-    :func:`graph_solve` can capture it in a CUDA graph."""
+    :func:`graph_solve` can capture it in a CUDA graph (with a mesh, on an
+    NCCL group only)."""
+    H, K, nu = config.horizon, config.num_samples, model.nu
+    if mesh is not None:
+        if K % mesh.size:
+            raise ValueError(f"num_samples ({K}) must divide over the "
+                             f"sample mesh's {mesh.size} ranks")
+        device = mesh.on_device(device)
     core, device = _make_core(model, step_cost, config, device, terrain,
                               with_payload, plane_mode, terminal_cost,
-                              with_command, u_ref_fn, anchor_w)
-    H, K, nu = config.horizon, config.num_samples, model.nu
+                              with_command, u_ref_fn, anchor_w, mesh)
+    K_local = K // (1 if mesh is None else mesh.size)
+    first = 0 if mesh is None else mesh.index * K_local
 
     def solve(state: State, mppi: MPPIState,
               generator: Optional[torch.Generator] = None,
@@ -357,10 +397,12 @@ def make_solver(
                              f"{tuple(normals.shape)}")
         ctrl, nominal, stats = core(
             state.qpos[None], state.qvel[None], state.time.reshape(1),
-            mppi.nominal[None], normals[None], payload, command)
+            mppi.nominal[None], normals[None, first:first + K_local],
+            payload, command)
         return (ctrl[0], MPPIState(nominal=nominal[0]),
                 {k: v[0] for k, v in stats.items()})
 
+    solve.mesh = mesh
     return solve
 
 
@@ -432,7 +474,11 @@ def graph_solve(solve: Callable, state: State, mppi_state: MPPIState,
     ``generator`` into the graph's static buffer before the replay, as
     ``solve`` draws them; a float ``aux`` (the payload) is filled into its
     buffer.  Its outputs are static tensors that the next call overwrites:
-    clone what you keep.  Raises on a device other than CUDA."""
+    clone what you keep.  Raises on a device other than CUDA, and for a
+    solve sharded over a gloo group (a graph cannot hold its
+    collectives)."""
+    collectives.require_capturable(getattr(solve, "mesh", None),
+                                   "graph_solve")
 
     def fn(qpos, qvel, time, nominal, normals, *aux):
         ctrl, ms, stats = solve(State(qpos=qpos, qvel=qvel, time=time),

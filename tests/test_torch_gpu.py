@@ -822,3 +822,116 @@ def test_capture_survives_garbage_that_owns_a_graph(cuda_device):
     finally:
         gc.set_threshold(*threshold)
     assert torch.equal(out.cpu(), torch.full((4,), 2.0))
+
+
+@pytest.mark.gpu
+def test_nccl_world_size_1_sharded_solve_and_tick(cuda_device):
+    """ROADMAP M14 on one card: an NCCL group of one rank.  The
+    sample-sharded solve of bench_suite config 6 (Go1 flat trot, K=256, H=25,
+    2 x 10 ms on K1) equals make_solver bit for bit on the same normals;
+    the sharded make_mpc tick replayed from a CUDA graph, its NCCL
+    all_reduce captured, equals the eager tick bit for bit with 26 launches
+    per replay; a gloo group of the same rank cannot meet a graph path
+    (graph_tick, graph_solve, RealtimeController raise)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from opendog_tpu_torch.parallel import (Mesh, initialize_distributed,
+                                            sample_mesh)
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import (RealtimeController, graph_solve,
+                                           graph_tick, make_mpc, mppi)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = sample_mesh(1)
+        m, cost = _go1_trot(cuda_device)
+        cfg = _bench_config()
+        st, ms0 = make_state(m, "home"), mppi.init_state(m, cfg)
+        plain = mppi.make_solver(m, cost, cfg, device=cuda_device)
+        sharded = mppi.make_solver(m, cost, cfg, mesh=mesh)
+        for n in _normals(2, cfg, m.nu, cuda_device):
+            a, b = plain(st, ms0, None, n), sharded(st, ms0, None, n)
+            assert torch.equal(a[0], b[0])
+            assert torch.equal(a[1].nominal, b[1].nominal)
+            for k in a[2]:
+                assert torch.equal(a[2][k], b[2][k]), k
+
+        init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=10, mesh=mesh)
+        carry0 = init(torch.Generator(device=cuda_device).manual_seed(0), st)
+        normals = _normals(3, cfg, m.nu, cuda_device)
+        eager, carry = [], carry0
+        for n in normals:
+            carry, out = tick(carry, n)
+            eager.append((out["ctrl"], carry.plant.qpos, carry.solver.nominal))
+        gtick = graph_tick(tick, carry0, normals[0])
+        assert sum(gtick.graph.launches.values()) == 26
+        carry = carry0
+        for n, want in zip(normals, eager):
+            carry, out = gtick(carry, n)
+            for a, b in zip((out["ctrl"], carry.plant.qpos,
+                             carry.solver.nominal), want):
+                assert torch.equal(a, b)
+
+        gloo = Mesh(group=dist.new_group([0], backend="gloo"), axis="mp",
+                    size=1, index=0, device=cuda_device)
+        solve_g = mppi.make_solver(m, cost, cfg, mesh=gloo)
+        _, tick_g, _ = make_mpc(m, cost, cfg, mesh=gloo)
+        with pytest.raises(ValueError, match="gloo"):
+            graph_solve(solve_g, st, ms0, normals[0])
+        with pytest.raises(ValueError, match="gloo"):
+            graph_tick(tick_g, carry0, normals[0])
+        with pytest.raises(ValueError, match="gloo"):
+            RealtimeController(m, cost, cfg, mesh=gloo)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_nccl_world_size_1_graphed_sharded_ilqr(cuda_device):
+    """ROADMAP M14's horizon sharding on the CUDA default path: an NCCL
+    group of one rank, ``make_ilqr(mesh=, graphs=True)`` at bench 3's
+    horizon (Go1 standing, H=50, one iteration, associative Riccati), so
+    that the Riccati piece's graph holds sharded_suffix_scan's two NCCL
+    all_reduces.  Two solves (the capturing call and a replay) equal the
+    unsharded graphed solve's bit for bit: U, X and every stat, the gains
+    k_ff and K_fb among them."""
+    import socket
+
+    import torch.distributed as dist
+
+    from opendog_tpu_torch.parallel import initialize_distributed, make_mesh
+    from opendog_tpu_torch.physics import dynamics, make_state
+    from opendog_tpu_torch.solvers import ILQRConfig, costs, make_ilqr
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1, "sp")
+        m = load_go1("flat", device=cuda_device)
+        cost = costs.standing_cost(m, 0.265, m.key_qpos[0, 7:])
+        cfg = ILQRConfig(horizon=50, n_substeps=2, rollout_dt=0.01,
+                         iterations=1, riccati="associative")
+        st, _ = dynamics.step(m, make_state(m, "home"), m.key_ctrl[0],
+                              n_substeps=200)
+        U0 = m.key_ctrl[0][None].repeat(cfg.horizon, 1)
+        plain = make_ilqr(m, cost, cfg, device=cuda_device, graphs=True)
+        sharded = make_ilqr(m, cost, cfg, mesh=mesh, graphs=True)
+        for _ in range(2):
+            out = []
+            for solve in (plain, sharded):
+                U, X, stats = solve(st, U0)
+                out.append(dict(U=U, X=X, **stats))
+            for k in out[0]:
+                assert torch.equal(out[0][k], out[1][k]), k
+        assert float(out[0]["cost"]) < float(out[0]["initial_cost"])
+    finally:
+        dist.destroy_process_group()

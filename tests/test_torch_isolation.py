@@ -39,6 +39,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert "opendog_tpu_torch.physics.terrain" in names, names
+for name in ("parallel", "parallel.mesh", "parallel.rollout",
+             "parallel.collectives"):
+    assert "opendog_tpu_torch." + name in names, names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -50,12 +53,15 @@ assert "opendog_tpu_torch.physics.terrain" in names, names
 
 
 def test_port_sources_name_no_jax_or_jax_package():
+    sources = _port_sources()
+    for name in ("__init__", "mesh", "rollout", "collectives"):
+        assert os.path.join(PKG, "parallel", name + ".py") in sources
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b"
         r"|\bopendog_tpu\.|^\s*(import|from)\s+opendog_tpu\b(?!_torch)",
         re.M)
     hits = []
-    for path in _port_sources():
+    for path in sources:
         with open(path) as f:
             for m in pattern.finditer(f.read()):
                 hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0)!r}")
