@@ -231,6 +231,24 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              graph of one step: upright for at least 250 steps and more
              than 0.5 m forward; prints episode_return, episode_len,
              forward_x;
+  perception - apps/slam.py, mapping.py, obstacle.py and mono_depth.py on
+             OpenDOG's terrain scene and the generated terrain of seed 0
+             (relief over 0.05 m), CamConfig() 32 x 24, no substep kernel
+             launched: the card against the CPU on the same inputs
+             (render_depth at three poses and as their batch, 1e-5 m and
+             the same NaN mask; ICP pose and rms 1e-5; fractal heights
+             1e-5; the DepthCNN forward with the same weights 1e-4); the
+             40-step simulate_walk_localization (bias 0.25) with
+             tests/test_slam.py's gates (ICP beats dead reckoning, ICP RMSE
+             under half of it, final error under 5 cm); its frames into a
+             VoxelMap and one through detect_obstacles and
+             ObstacleAvoider.update (finite, counts equal to the CPU's);
+             train_depth_net at 48 / 12 / 300 on four terrains and the
+             three cross-family arms of 16 frames (fractal terrain,
+             overcast shading, both): each beats the mean-depth baseline,
+             validation RMSE under half of it; ms per render_depth frame,
+             per TerrainLocalizer.update and per Adam step, s per
+             train_depth_net;
   profile  - torch.profiler over 3 ticks (10 before the multi-device
              phases) of the flat, terrain and
              exact-terrain loops, eager and graph;
@@ -365,6 +383,15 @@ SHARDED_REF = dict(K=SHARDED_RANKS * 256, dt=0.01, n=2)  # one-process solve
 SHARDED_TOL = 1e-5         # rank 0 vs the one-process solve (sum order)
 SCAN_TOL = 2e-4            # sharded_suffix_scan vs the unsharded scan
 SHARDED_TIMEOUT_S = 300    # the spawned ranks, rendezvous included
+# [perception] (ROADMAP M15b): the JAX package's defaults throughout
+PERCEPTION_POSES = ((0.2, 0.1, 0.3), (0.3, -0.2, 0.2), (-1.0, 0.7, 2.5))
+PERCEPTION_TOL = dict(render_m=1e-5, icp=1e-5, fractal_m=1e-5, cnn_m=1e-4)
+WALK_STEPS = 40            # simulate_walk_localization's default
+WALK_FINAL_ERR_M = 0.05    # tests/test_slam.py:89
+DEPTH_TRAIN = dict(n_train=48, n_val=12, steps=300)  # the depth scripts'
+DEPTH_EVAL_FRAMES = 16     # frames per cross-family arm
+PERCEPTION_REPS = 20       # timed render_depth frames, ICP updates, Adam
+                           # steps
 
 
 def free_port():
@@ -2157,6 +2184,185 @@ class Smoke:
                                f" is not above {GAIT_Z_MIN}")
         return fields
 
+    # -- perception -----------------------------------------------------
+    def perception(self):
+        """apps/slam.py, mapping.py, obstacle.py and mono_depth.py on the
+        card (module docstring, [perception]); runs no substep kernel."""
+        out = self.counted("perception", self.perception_run, {})
+        log("[perception] " + json.dumps(out))
+        return out
+
+    def perception_check(self, label, err, tol):
+        log(f"[perception] card vs CPU {label}: max abs err {err:.3e} "
+            f"(tolerance {tol:.0e})")
+        if not err <= tol:
+            raise RuntimeError(f"[perception] card vs CPU {label}: {err} > "
+                               f"{tol}")
+        return err
+
+    def perception_run(self):
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.apps import mapping, mono_depth, obstacle, slam
+        from opendog_tpu_torch.physics import terrain as terrain_lib
+        m, terr = self.dog_t, self.terrain
+        mc, terr_c = m.to("cpu"), terr.to("cpu")
+        tol, smi = PERCEPTION_TOL, nvidia_smi_line()
+        relief = float(terr.height.max() - terr.height.min())
+        if not relief > 0.05:
+            raise RuntimeError(f"[perception] terrain relief {relief} m")
+        out = dict(terrain_relief_m=relief, card_vs_cpu={})
+        errs = out["card_vs_cpu"]
+
+        # the card against the CPU on the same inputs
+        poses = torch.tensor(PERCEPTION_POSES)
+        want = slam.render_depth(mc, terr_c, poses)
+        got = slam.render_depth(m, terr, poses.to(dev)).cpu()
+        for i, p in enumerate(PERCEPTION_POSES):
+            one = slam.render_depth(m, terr, p).cpu()
+            if not torch.equal(one.nan_to_num(9.0), got[i].nan_to_num(9.0)):
+                raise RuntimeError("[perception] render_depth of one pose "
+                                   "differs from its row of the batch")
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise RuntimeError("[perception] render_depth NaN masks differ")
+        fin = torch.isfinite(want)
+        hit = float(fin.all(-1).float().mean())
+        if not hit > 0.8:
+            raise RuntimeError(f"[perception] only {hit} of the rays hit")
+        errs["render_depth_m"] = self.perception_check(
+            "render_depth", float((got[fin] - want[fin]).abs().max()),
+            tol["render_m"])
+        rng = np.random.default_rng(0)
+        frame = (want[1].numpy() + rng.normal(0, 0.01, want[1].shape)
+                 ).astype(np.float32)
+        pose0 = np.array(PERCEPTION_POSES[1], np.float32) + np.array(
+            [0.12, -0.08, 0.06], np.float32)
+        pc, rc = slam.point_to_plane_icp(mc, terr_c, torch.from_numpy(frame),
+                                         pose0)
+        pg, rg = slam.point_to_plane_icp(m, terr, torch.from_numpy(
+            frame).to(dev), pose0)
+        errs["icp_pose"] = self.perception_check(
+            "ICP pose", float((pg.cpu() - pc).abs().max()), tol["icp"])
+        errs["icp_rms"] = self.perception_check(
+            "ICP rms", abs(float(rg) - float(rc)), tol["icp"])
+        draws = terrain_lib.draw_terrain_fractal(
+            mc, torch.Generator().manual_seed(200))
+        hc = terrain_lib.generate_terrain_fractal(mc, draws=draws).height
+        hg = terrain_lib.generate_terrain_fractal(m, draws=type(draws)(
+            *(f.to(dev) for f in draws))).height
+        errs["fractal_m"] = self.perception_check(
+            "fractal heights", float((hg.cpu() - hc).abs().max()),
+            tol["fractal_m"])
+        net = mono_depth.DepthCNN(generator=torch.Generator().manual_seed(0))
+        x = torch.from_numpy(rng.uniform(0, 1, (48, 1, 24, 32)).astype(
+            np.float32))
+        with torch.no_grad():
+            yc = net(x)
+            yg = net.to(dev)(x.to(dev)).cpu()
+        errs["depth_cnn_m"] = self.perception_check(
+            "DepthCNN forward", float((yg - yc).abs().max()), tol["cnn_m"])
+
+        # localization: the 40-step walk on the card
+        frames = []
+        t0 = time.perf_counter()
+        walk = slam.simulate_walk_localization(m, terr, n_steps=WALK_STEPS,
+                                               frames=frames)
+        walk["seconds"] = time.perf_counter() - t0
+        out["walk"] = walk
+        log("[perception] walk: " + json.dumps(walk))
+        if not (walk["icp_beats_deadreckon"]
+                and walk["icp_rmse_m"] < 0.5 * walk["deadreckon_rmse_m"]
+                and walk["icp_final_err_m"] < WALK_FINAL_ERR_M):
+            raise RuntimeError(f"[perception] walk gates failed: {walk}")
+
+        # the walk's frames into a voxel map; one frame's obstacles
+        vg = mapping.VoxelMap(device=dev)
+        vc = mapping.VoxelMap(device="cpu")
+        for pose, f in frames:
+            world = mapping.transform_points(torch.from_numpy(f).to(dev),
+                                             pose)
+            vg = vg.integrate(world)
+            vc = vc.integrate(world.cpu())
+        if not torch.equal(vg.counts.cpu(), vc.counts):
+            raise RuntimeError("[perception] VoxelMap counts differ from "
+                               "the CPU's")
+        f = torch.from_numpy(frames[-1][1])
+        cg, ng = obstacle.detect_obstacles(f.to(dev))
+        cc, nc = obstacle.detect_obstacles(f)
+        if not (torch.equal(ng.cpu(), nc) and torch.equal(
+                cg.cpu().nan_to_num(9.0), cc.nan_to_num(9.0))):
+            raise RuntimeError("[perception] detect_obstacles differs from "
+                               "the CPU's")
+        avoider = obstacle.ObstacleAvoider()
+        avoider.start(0.0)
+        target = avoider.update(cg.cpu().numpy(), 0.0)
+        occupied = int((ng >= 5).sum())
+        if not (np.isfinite(target) and np.isfinite(vg.occupied(3)).all()):
+            raise RuntimeError("[perception] map or avoider not finite")
+        out["map"] = dict(points=int(vg.counts.sum()),
+                          occupied_voxels=len(vg.occupied(3)),
+                          obstacle_cells=occupied, avoid_state=
+                          avoider.state.value, target_yaw_deg=target)
+        log("[perception] map and obstacles: " + json.dumps(out["map"]))
+
+        # the depth net: train, then the three cross-family arms
+        terrains = [terrain_lib.generate_terrain(
+            m, torch.Generator().manual_seed(s)) for s in range(4)]
+        t0 = time.perf_counter()
+        dnet, train = mono_depth.train_depth_net(m, terrains, device=dev,
+                                                 **DEPTH_TRAIN)
+        torch.cuda.synchronize()
+        train["seconds"] = time.perf_counter() - t0
+        fam2 = [terrain_lib.generate_terrain_fractal(
+            m, generator=torch.Generator().manual_seed(s))
+            for s in range(200, 204)]
+        arms = dict(
+            fam2_terrain=(fam2, mono_depth.render_shaded, 8000),
+            fam2_renderer=(terrains, mono_depth.render_shaded_overcast,
+                           9000),
+            fam2_both=(fam2, mono_depth.render_shaded_overcast, 10000))
+        depth = dict(train=train)
+        for name, (ts, renderer, seed) in arms.items():
+            depth[name] = mono_depth.eval_depth_arm(
+                m, dnet, ts, DEPTH_EVAL_FRAMES, seed, renderer=renderer)
+        out["depth"] = depth
+        log("[perception] depth net: " + json.dumps(depth))
+        if not (all(a["beats_baseline"] for a in depth.values())
+                and train["val_rmse_m"]
+                < 0.5 * train["mean_depth_baseline_rmse_m"]):
+            raise RuntimeError(f"[perception] depth gates failed: {depth}")
+
+        # timings
+        pose = torch.tensor(PERCEPTION_POSES[0], device=dev)
+        render_ms = event_ms(torch, lambda: slam.render_depth(m, terr, pose),
+                             PERCEPTION_REPS)
+        loc = slam.TerrainLocalizer(m, terr)
+        loc.update(0.25, 0.0, 0.0, 0.1, frame)      # warm-up
+        t0 = time.perf_counter()
+        for _ in range(PERCEPTION_REPS):
+            loc.pose = pose0.copy()
+            loc.update(0.0, 0.0, float(np.degrees(pose0[2])), 0.1, frame)
+        update_ms = (time.perf_counter() - t0) / PERCEPTION_REPS * 1e3
+        opt = torch.optim.Adam(dnet.parameters(), lr=3e-3)
+        xb = torch.from_numpy(rng.uniform(0, 1, (16, 1, 24, 32)).astype(
+            np.float32)).to(dev)
+        yb = torch.from_numpy(rng.uniform(0.3, 4, (16, 24, 32)).astype(
+            np.float32)).to(dev)
+
+        def adam_step():
+            opt.zero_grad(set_to_none=True)
+            torch.mean((dnet(xb) - yb) ** 2).backward()
+            opt.step()
+
+        adam_ms = event_ms(torch, adam_step, PERCEPTION_REPS)
+        times = dict(render_depth_ms_per_frame=render_ms,
+                     localizer_update_ms=update_ms, adam_step_ms=adam_ms,
+                     train_depth_net_s=train["seconds"],
+                     walk_s=walk["seconds"])
+        for k, v in times.items():
+            log(f"[perception] {k} {v:.4f} ({smi})")
+        out["times"] = times
+        return out
+
     # -- PPO training ---------------------------------------------------
     def ppo_graph(self):
         """[ppo-graph]: the rollout step replayed from its CUDA graph equals
@@ -3045,14 +3251,20 @@ def sharded_phases(smoke):
             "sharded-2": smoke.sharded_two()}
 
 
+def perception_phases(smoke):
+    """The perception phase (apps/slam.py .. mono_depth.py, ROADMAP M15b)."""
+    return smoke.perception()
+
+
 def main(argv=None):
-    """``--only ppo`` (``bridge``, ``sharded``) runs the device phase and
-    the PPO phases (the bridge phases, the multi-device phases) alone: a
-    development aid, with no kernel checked and no "ok" line."""
+    """``--only ppo`` (``bridge``, ``sharded``, ``perception``) runs the
+    device phase and the PPO phases (the bridge phases, the multi-device
+    phases, the perception phase) alone: a development aid, with no kernel
+    checked and no "ok" line."""
     import argparse
     p = argparse.ArgumentParser()
-    p.add_argument("--only", choices=["ppo", "bridge", "sharded"],
-                   default=None)
+    p.add_argument("--only", choices=["ppo", "bridge", "sharded",
+                                      "perception"], default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
     import torch
@@ -3074,7 +3286,8 @@ def main(argv=None):
     if args.only is not None:
         smoke = Smoke(torch, dev)
         res = dict(ppo=ppo_phases, bridge=bridge_phases,
-                   sharded=sharded_phases)[args.only](smoke)
+                   sharded=sharded_phases,
+                   perception=perception_phases)[args.only](smoke)
         log(f"[summary] {args.only}: " + json.dumps(res))
         log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
         log(smi)
@@ -3131,6 +3344,8 @@ def main(argv=None):
     mark("robot bridge phases")
     ppo = ppo_phases(smoke)
     mark("ppo phases")
+    perception = perception_phases(smoke)
+    mark("perception")
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
@@ -3160,6 +3375,7 @@ def main(argv=None):
     log("[summary] robot bridge: " + json.dumps(bridge_out))
     log("[summary] multi-device: " + json.dumps(sharded))
     log("[summary] ppo: " + json.dumps(ppo))
+    log("[summary] perception: " + json.dumps(perception))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

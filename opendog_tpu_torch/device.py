@@ -33,3 +33,15 @@ def use_cusolver() -> None:
     MAGMA, which a CUDA graph capture refuses.  A process-wide setting, as
     the TF32 flags of :func:`use_full_fp32` are."""
     torch.backends.cuda.preferred_linalg_library("cusolver")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (first card), to stand
+    beside every time taken on it."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

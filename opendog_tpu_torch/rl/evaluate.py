@@ -13,6 +13,7 @@ records) is captured in a CUDA graph over static buffers and replayed
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -93,8 +94,18 @@ class PolicyRollout:
         current.wait_stream(side)
         tree_copy_(self.carry, saved)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._step()
+        # the cyclic collector is held off, as GraphedTick holds it: a
+        # collection inside the capture that frees another graph (a
+        # dropped learner's or eval's, left as cyclic garbage) invalidates
+        # the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self._step()
+        finally:
+            if collecting:
+                gc.enable()
 
     def __call__(self, draws):
         x0 = self._start(draws)

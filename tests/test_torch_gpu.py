@@ -825,6 +825,47 @@ def test_capture_survives_garbage_that_owns_a_graph(cuda_device):
 
 
 @pytest.mark.gpu
+def test_eval_capture_survives_garbage_that_owns_a_graph(cuda_device):
+    """The same for the eval's step (``rl/evaluate.py::PolicyRollout``):
+    its capture holds the collector off, so an unreachable cycle that owns
+    a captured graph is not destroyed inside it (``chip_smoke.py``
+    [ppo-policy] failed so once, after the PPO phases left their learners
+    as cyclic garbage)."""
+    import gc
+
+    from opendog_tpu_torch.envs import WalkEnv
+    from opendog_tpu_torch.rl.evaluate import PolicyRollout
+    from opendog_tpu_torch.solvers.graph import GraphedTick
+
+    env = WalkEnv(load_opendog("flat", device=cuda_device), frame_skip=2)
+    x = torch.ones(4, device=cuda_device)
+    keep = [GraphedTick(lambda a: (a * 2,), (x,), cuda_device)]
+    calls = [0]
+
+    def policy(obs):
+        calls[0] += 1
+        if calls[0] == 2:  # the captured call (the first is the warm-up)
+            cycle = {"graph": keep.pop()}
+            cycle["self"] = cycle
+            del cycle
+            junk = [[i] for i in range(100)]
+            del junk
+        return torch.zeros(obs.shape[0], env.action_dim, device=obs.device)
+
+    run = PolicyRollout(env, policy, 3, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        metrics, physics, _ = run(env.draw_reset(gen, 1))
+    finally:
+        gc.set_threshold(*threshold)
+    assert calls[0] == 2 and not keep
+    assert torch.isfinite(physics.qpos).all()
+    assert int(metrics["episode_len"]) >= 1
+
+
+@pytest.mark.gpu
 def test_nccl_world_size_1_sharded_solve_and_tick(cuda_device):
     """ROADMAP M14 on one card: an NCCL group of one rank.  The
     sample-sharded solve of bench_suite config 6 (Go1 flat trot, K=256, H=25,
@@ -935,3 +976,70 @@ def test_nccl_world_size_1_graphed_sharded_ilqr(cuda_device):
         assert float(out[0]["cost"]) < float(out[0]["initial_cost"])
     finally:
         dist.destroy_process_group()
+
+
+def _perception_world(device):
+    """OpenDOG's terrain scene on ``device`` and the generated terrain of
+    generator seed 0 (a non-flat episode), on ``device`` and on the CPU."""
+    from opendog_tpu_torch.physics import terrain as terrain_lib
+    m = load_opendog("terrain", device=device)
+    terr = terrain_lib.generate_terrain(m, torch.Generator().manual_seed(0))
+    return m, m.to("cpu"), terr, terr.to("cpu")
+
+
+@pytest.mark.gpu
+def test_render_depth_card_equals_cpu(cuda_device):
+    """The ray march on the card against the CPU on the same poses (one and
+    a batch): within 1e-5 m, the same NaN mask."""
+    from opendog_tpu_torch.apps.slam import render_depth
+    m, mc, terr, terr_c = _perception_world(cuda_device)
+    poses = torch.tensor([[0.2, 0.1, 0.3], [0.3, -0.2, 0.2],
+                          [-1.0, 0.7, 2.5]])
+    got = render_depth(m, terr, poses.to(cuda_device)).cpu()
+    want = render_depth(mc, terr_c, poses)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isfinite(want).all(-1).float().mean() > 0.8
+    fin = torch.isfinite(want)
+    assert (got[fin] - want[fin]).abs().max() <= 1e-5
+    one = render_depth(m, terr, poses[1].to(cuda_device)).cpu()
+    assert torch.equal(torch.isnan(one), torch.isnan(got[1]))
+
+
+@pytest.mark.gpu
+def test_voxel_map_and_obstacles_card_equal_cpu(cuda_device):
+    """Integer counts: equal exactly on the card and the CPU."""
+    from opendog_tpu_torch.apps.mapping import VoxelMap, transform_points
+    from opendog_tpu_torch.apps.obstacle import detect_obstacles
+    from opendog_tpu_torch.apps.slam import render_depth
+    m, _, terr, _ = _perception_world(cuda_device)
+    vm = VoxelMap(device=cuda_device)
+    vc = VoxelMap(device="cpu")
+    for k in range(5):
+        pose = (0.06 * k, 0.0, 0.05 * k)
+        frame = render_depth(m, terr, pose)
+        world = transform_points(frame, pose)
+        vm = vm.integrate(world)
+        vc = vc.integrate(world.cpu())
+        c_card, n_card = detect_obstacles(frame)
+        c_cpu, n_cpu = detect_obstacles(frame.cpu())
+        assert torch.equal(n_card.cpu(), n_cpu)
+        assert torch.equal(torch.isnan(c_card.cpu()), torch.isnan(c_cpu))
+    assert vm.counts.device.type == "cuda"
+    assert torch.equal(vm.counts.cpu(), vc.counts)
+    assert int(vc.counts.sum()) > 100
+
+
+@pytest.mark.gpu
+def test_depth_cnn_forward_card_equals_cpu(cuda_device):
+    """The same weights on cuDNN (TF32 off) and on the CPU: within 1e-4
+    m."""
+    from opendog_tpu_torch.apps.mono_depth import DepthCNN
+    from opendog_tpu_torch.device import use_full_fp32
+    use_full_fp32()
+    net = DepthCNN(generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (12, 1, 24, 32)).astype(np.float32))
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(cuda_device)(x.to(cuda_device)).cpu()
+    assert (got - want).abs().max() <= 1e-4

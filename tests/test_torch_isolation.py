@@ -40,7 +40,9 @@ print(len(names), bad)
 assert not bad, bad
 assert "opendog_tpu_torch.physics.terrain" in names, names
 for name in ("parallel", "parallel.mesh", "parallel.rollout",
-             "parallel.collectives"):
+             "parallel.collectives", "apps.mapping", "apps.slam",
+             "apps.pointcloud_viz", "apps.obstacle", "apps.depth",
+             "apps.mono_depth"):
     assert "opendog_tpu_torch." + name in names, names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -56,6 +58,9 @@ def test_port_sources_name_no_jax_or_jax_package():
     sources = _port_sources()
     for name in ("__init__", "mesh", "rollout", "collectives"):
         assert os.path.join(PKG, "parallel", name + ".py") in sources
+    for name in ("offdist", "crossfam"):
+        assert os.path.join(REPO, "scripts",
+                            f"torch_depth_{name}_eval.py") in sources
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b"
         r"|\bopendog_tpu\.|^\s*(import|from)\s+opendog_tpu\b(?!_torch)",
