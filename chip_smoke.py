@@ -249,6 +249,27 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              validation RMSE under half of it; ms per render_depth frame,
              per TerrainLocalizer.update and per Adam step, s per
              train_depth_net;
+  apps     - the rest of the package (ROADMAP M15c), no substep kernel
+             launched: the SimViewer of apps/viewer_cli.build_viewer on
+             OpenDOG flat (home control, paused): 2 ticks replayed from its
+             CUDA graph equal to 2 eager ticks on the card bit for bit
+             (states and telemetry packets), then 50 ticks, a push tick, a
+             set_state and a tick after it against the same on the CPU
+             (1e-4 qpos, 1e-3 qvel), ms per replayed tick (CUDA events on
+             the viewer's stream), and the telemetry stream of the launched
+             viewer read back on loopback by the port's client (at least 3
+             packets with the schema's keys, qpos equal to the snapshot's
+             to 1e-6); a KeywordSpotter on the card (templates within 1e-4
+             of the CPU's, all nine words at the two off-template speakers
+             of tests/test_voice_frontend.py, the two gait-machine phrases
+             transcribed as on the CPU and parsed to WALK / STOP), ms per
+             log_mel; train_cloned_policy: 20 steps replayed from its CUDA
+             graph equal to 20 eager steps bit for bit, then at its
+             defaults (2000 Adam steps, batch 256) inside
+             tests/test_apps_extra.py's 2.5-degree band, its seconds;
+             capture_activations of the committed walk policy on 64
+             observations equal to the CPU's under flax's keys (within
+             1e-5 and 4 float32 ulps of each layer's largest value);
   profile  - torch.profiler over 3 ticks (10 before the multi-device
              phases) of the flat, terrain and
              exact-terrain loops, eager and graph;
@@ -306,8 +327,6 @@ CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # kernel vs plain, max abs error
 # the substep of the kernels' design; the entry points are in
 # substep_kernel.cu
 SOURCE = "opendog_tpu_torch/csrc/substep_warp.cuh"
-PEAK_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROLLOUT = dict(K=256, dt=0.01, n=2)
 RAGGED = dict(K=257, dt=0.01, n=2)  # one rollout past the MPPI paths' K
 PLANT = dict(K=1, dt=0.002, n=10)
@@ -392,6 +411,23 @@ DEPTH_TRAIN = dict(n_train=48, n_val=12, steps=300)  # the depth scripts'
 DEPTH_EVAL_FRAMES = 16     # frames per cross-family arm
 PERCEPTION_REPS = 20       # timed render_depth frames, ICP updates, Adam
                            # steps
+# [apps] (ROADMAP M15c)
+VIEWER_EQ_TICKS = 2        # replayed vs eager viewer ticks on the card
+VIEWER_TICKS = 50          # viewer ticks on the card vs the CPU
+VIEWER_TIMED_TICKS = 20    # replayed ticks timed by CUDA events
+TELEMETRY_TOL = 1e-6       # a packet's qpos vs the snapshot's (float64)
+VOICE_TOL = 1e-4           # the card's spotter templates vs the CPU's
+VOICE_SPEAKERS = ((125.0, 1.05, 0.02, 1), (100.0, 0.95, 0.03, 2))
+VOICE_PHRASES = ((("perrito", "camina"), dict(f0=140.0, rate=1.08,
+                                              noise=0.02, seed=11), "camina"),
+                 (("perrito", "para"), dict(f0=105.0, rate=0.92, noise=0.03,
+                                            seed=12), "para"))
+VOICE_REPS = 20            # timed log_mel calls
+CLONING_BAND_DEG = 2.5     # tests/test_apps_extra.py:38-44
+CLONING_EQ_STEPS = 20      # graph vs eager cloning steps on the same draws
+NNVIS_TOL = 1e-5           # capture_activations, card vs CPU, plus 4 float32
+                           # ulps of a layer's largest value (the value head
+                           # reaches ~94 on these inputs: an ulp is 7.6e-6)
 
 
 def free_port():
@@ -2363,6 +2399,222 @@ class Smoke:
         out["times"] = times
         return out
 
+    # -- the rest of the package (ROADMAP M15c) --------------------------
+    def apps(self):
+        """[apps]: the viewer, voice, cloning and nnvis on the card (module
+        docstring); runs no substep kernel."""
+        def run():
+            t0 = time.perf_counter()
+            out = dict(viewer=self.viewer_check(),
+                       voice=self.voice_check(),
+                       cloning=self.cloning_check())
+            out["seconds"] = time.perf_counter() - t0
+            return out
+
+        out = self.counted("apps", run, {})
+        log("[apps] " + json.dumps(out))
+        return out
+
+    def viewer_pair(self, label, card, cpu, n):
+        """``n`` ticks of the card's viewer and of the CPU's; their states'
+        max abs differences, gated at the CPU check's tolerance."""
+        a, b = card.step_once(n), cpu.step_once(n)
+        err = {f: float((getattr(a, f) - getattr(b, f)).abs().max())
+               for f in ("qpos", "qvel")}
+        log(f"[apps] viewer {label}: card vs CPU max abs err {err}")
+        if not (err["qpos"] <= CPU_CHECK_TOL["qpos"]
+                and err["qvel"] <= CPU_CHECK_TOL["qvel"]
+                and bool(self.torch.isfinite(a.qpos).all())):
+            raise RuntimeError(f"[apps] viewer {label}: card vs CPU {err}")
+        return a, err
+
+    def viewer_check(self):
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.apps.viewer_cli import build_viewer
+        from opendog_tpu_torch.telemetry import TelemetryClient
+        card = build_viewer("opendog", device=dev)
+        eager = build_viewer("opendog", device=dev, graphs=False)
+        cpu = build_viewer("opendog", device="cpu")
+        out = {}
+        client = None
+        try:
+            for v in (card, eager, cpu):
+                v.pause()
+            # replayed ticks against eager ticks on the card, bit for bit
+            t0 = time.perf_counter()
+            b = eager.step_once(VIEWER_EQ_TICKS)
+            out["eager_ms_per_tick"] = (time.perf_counter() - t0) * 1e3 / \
+                VIEWER_EQ_TICKS
+            t0 = time.perf_counter()
+            a = card.step_once(VIEWER_EQ_TICKS)
+            out["capture_s"] = time.perf_counter() - t0
+            if not (all(torch.equal(getattr(a, f), getattr(b, f))
+                         for f in ("qpos", "qvel", "time"))
+                    and card._packet() == eager._packet()):
+                raise RuntimeError("[apps] viewer: the replayed ticks differ "
+                                   "from the eager ticks")
+            out["graph_nodes"] = graph_nodes(card._graph.graph)
+            log(f"[apps] viewer: {VIEWER_EQ_TICKS} ticks replayed from one "
+                f"CUDA graph ({out['graph_nodes']} nodes) equal "
+                f"{VIEWER_EQ_TICKS} eager ticks bit for bit")
+            cpu.step_once(VIEWER_EQ_TICKS)
+            _, out["ticks_err"] = self.viewer_pair(
+                f"{VIEWER_TICKS} ticks", card, cpu,
+                VIEWER_TICKS - VIEWER_EQ_TICKS)
+            for v in (card, cpu):
+                v.apply_wrench(force=(8.0, 0.0, 0.0), duration_s=v.period)
+            a, out["push_err"] = self.viewer_pair("push tick", card, cpu, 1)
+            q = a.qpos.clone()
+            q[2] = 0.3
+            for v in (card, cpu):
+                v.set_state(qpos=q.numpy())
+            if not torch.equal(card.snapshot().qpos, q):
+                raise RuntimeError("[apps] viewer: set_state did not set qpos")
+            _, out["set_state_err"] = self.viewer_pair(
+                "tick after set_state", card, cpu, 1)
+            # ms per replayed tick: CUDA events on the viewer's stream
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(card._stream)
+            card.step_once(VIEWER_TIMED_TICKS)
+            end.record(card._stream)
+            end.synchronize()
+            out["graph_ms_per_tick"] = start.elapsed_time(end) / \
+                VIEWER_TIMED_TICKS
+            log(f"[apps] viewer: {out['graph_ms_per_tick']:.4f} ms per "
+                f"replayed tick (events); the first {VIEWER_EQ_TICKS} eager "
+                f"ticks {out['eager_ms_per_tick']:.1f} ms each (host clock, "
+                f"first calls included) ({nvidia_smi_line()})")
+            # the telemetry stream of the launched (paused) viewer
+            card.launch()
+            client = TelemetryClient("127.0.0.1", card.server.port,
+                                     timeout=0.5)
+            snap = card.snapshot().qpos.numpy()[:7]
+            pkts = []
+            deadline = time.time() + 20.0
+            while len(pkts) < 3 and time.time() < deadline:
+                if not pkts:
+                    client.connect()
+                p = client.recv()
+                if p is not None:
+                    pkts.append(p)
+            keys = {"time", "qpos", "qvel", "ctrl", "contact_forces", "ncon"}
+            if len(pkts) < 3 or any(set(p) != keys for p in pkts):
+                raise RuntimeError(f"[apps] telemetry: {len(pkts)} packets "
+                                   f"{[sorted(p) for p in pkts]}")
+            err = max(float(np.abs(np.asarray(p["qpos"]) - snap).max())
+                      for p in pkts)
+            if not err <= TELEMETRY_TOL:
+                raise RuntimeError(f"[apps] telemetry qpos vs snapshot {err}")
+            out["telemetry"] = dict(packets=len(pkts), qpos_err=err,
+                                    ncon=pkts[-1]["ncon"])
+            log(f"[apps] telemetry: {len(pkts)} packets read back on "
+                f"loopback, qpos within {err:.2e} of the snapshot")
+        finally:
+            if client is not None:
+                client.close()
+            for v in (card, eager, cpu):
+                v.close()
+        return out
+
+    def voice_check(self):
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.apps import voice, voice_frontend as vf
+        card, cpu = vf.KeywordSpotter(device=dev), vf.KeywordSpotter(
+            device="cpu")
+        err = max(float(np.abs(a - b).max()) for w in vf.VOCABULARY
+                  for a, b in zip(card.templates[w], cpu.templates[w]))
+        log(f"[apps] voice: templates card vs CPU max abs err {err:.3e}")
+        if not err <= VOICE_TOL:
+            raise RuntimeError(f"[apps] voice templates: {err} > {VOICE_TOL}")
+        for w in vf.VOCABULARY:
+            for f0, rate, noise, seed in VOICE_SPEAKERS:
+                got, score = card.classify(vf.synthesize_word(
+                    w, f0=f0, rate=rate, noise=noise, seed=seed))
+                if got != w:
+                    raise RuntimeError(f"[apps] voice: {w} at f0 {f0} -> "
+                                       f"{got} ({score})")
+        transcripts = {}
+        for words, kw, command in VOICE_PHRASES:
+            audio = vf.synthesize_phrase(list(words), **kw)
+            text = card.transcribe(audio)
+            cmd = voice.parse_command(text)
+            if text != cpu.transcribe(audio) or cmd is None \
+                    or cmd.value != command:
+                raise RuntimeError(f"[apps] voice: {words} -> {text!r} "
+                                   f"({cmd}) on the card")
+            transcripts[" ".join(words)] = text
+        clip = vf.synthesize_word("izquierda", f0=125.0, noise=0.02, seed=1)
+        ms = event_ms(torch, lambda: vf.log_mel(clip, device=dev),
+                      VOICE_REPS)
+        log(f"[apps] voice: {2 * len(vf.VOCABULARY)} words and "
+            f"{len(transcripts)} phrases right; {ms:.4f} ms per log_mel "
+            f"({nvidia_smi_line()})")
+        return dict(template_err=err, transcripts=transcripts,
+                    log_mel_ms=ms)
+
+    def cloning_check(self):
+        import copy
+        torch, dev = self.torch, self.dev
+        from opendog_tpu_torch.apps import cloning, nnvis
+        from opendog_tpu_torch.rl.networks import (COMMITTED_WALK_POLICY,
+                                                   load_flax_params,
+                                                   read_npz_tree)
+        from opendog_tpu_torch.train import build
+        draws = torch.rand((CLONING_EQ_STEPS, 256, 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               1)) * 60.0 - 30.0
+        graph, eager = (cloning.train_cloned_policy(
+            draws=draws, num_steps=CLONING_EQ_STEPS, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            graphs=graphs) for graphs in (True, False))
+        if not all(torch.equal(a, b) for a, b in zip(graph.parameters(),
+                                                    eager.parameters())):
+            raise RuntimeError("[apps] cloning: the replayed steps differ "
+                               "from the eager steps")
+        t0 = time.perf_counter()
+        net = cloning.train_cloned_policy(
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        err = 0.0
+        for e in (-20.0, -5.0, 0.0, 5.0, 20.0):
+            got = cloning.cloned_lift_angles(net, e)
+            want = cloning.expert_action(e).numpy()
+            err = max(err, float(abs(got[0] - want[0])),
+                      float(abs(got[1] - want[1])))
+        log(f"[apps] cloning: {CLONING_EQ_STEPS} steps replayed from a CUDA "
+            "graph equal the eager steps bit for bit; 2000 Adam steps (1 "
+            f"eager, 1999 replayed) in {seconds:.3f} s, "
+            f"{err:.3f} degrees from the expert at most "
+            f"({nvidia_smi_line()})")
+        if not err < CLONING_BAND_DEG:
+            raise RuntimeError(f"[apps] cloning: {err} degrees from the "
+                               "expert")
+        _, _, policy = build("walk", dev)
+        load_flax_params(policy, read_npz_tree(COMMITTED_WALK_POLICY))
+        obs = np.random.default_rng(0).normal(
+            size=(64, policy.obs_dim)).astype(np.float32)
+        a = nnvis.capture_activations(policy, torch.from_numpy(obs).to(dev))
+        b = nnvis.capture_activations(copy.deepcopy(policy).to("cpu"),
+                                      torch.from_numpy(obs))
+        if set(a) != set(b):
+            raise RuntimeError(f"[apps] nnvis: keys {sorted(a)} vs "
+                               f"{sorted(b)}")
+        act_err = 0.0
+        for k in b:
+            k_err = float(np.abs(a[k] - b[k]).max())
+            tol = NNVIS_TOL + 4 * float(np.finfo(np.float32).eps) * float(
+                np.abs(b[k]).max())
+            if not k_err <= tol:
+                raise RuntimeError(f"[apps] nnvis {k}: card vs CPU {k_err} "
+                                   f"> {tol}")
+            act_err = max(act_err, k_err)
+        log(f"[apps] nnvis: {len(a)} activations of the walk policy, card "
+            f"vs CPU max abs err {act_err:.3e}")
+        return dict(train_s=seconds, max_err_deg=err, nnvis_keys=sorted(a),
+                    nnvis_err=act_err)
+
     # -- PPO training ---------------------------------------------------
     def ppo_graph(self):
         """[ppo-graph]: the rollout step replayed from its CUDA graph equals
@@ -2980,7 +3232,10 @@ class Smoke:
     # -- timing -----------------------------------------------------------
     def timing(self):
         from opendog_tpu_torch.ops import scalar_core
+        from opendog_tpu_torch.utils.profiling import CHIP_PEAKS
         torch = self.torch
+        peak_flops = CHIP_PEAKS["h100"]["fp32_flops"]
+        peak_bytes = CHIP_PEAKS["h100"]["hbm_bytes"]
         kernels = []
         for label, rec in self.records.items():
             shape, model = rec["shape"], rec["model"]
@@ -2995,15 +3250,16 @@ class Smoke:
                 model, shape["dt"], *rec["modes"]) * K * n
             nbytes = 4 * sum(a.numel() for a in args if a is not None) + 4 * K * (
                 model.nq + model.nv)
-            t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+            t_ops, t_bytes = ops / peak_flops, nbytes / peak_bytes
             bound_ms = 1e3 * max(t_ops, t_bytes)
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
             design = self.cs.KERNEL_DESIGNS[rec["name"]]
             log(f"[timing] {label} ({rec['name']}, {design} design) K={K} "
                 f"x{n}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} "
-                f"ms by {bound_by} ({ops} ops at 67 TFLOP/s fp32 vs {nbytes} "
-                f"B at 3.35 TB/s; {100 * bound_ms / ms:.3f}% of bound); "
+                f"ms by {bound_by} ({ops} ops at {peak_flops / 1e12:g} "
+                f"TFLOP/s fp32 vs {nbytes} B at {peak_bytes / 1e12:g} TB/s; "
+                f"{100 * bound_ms / ms:.3f}% of bound); "
                 f"launches on the paths {rec['launches']}; library call: "
                 f"none computes this function")
             kernels.append({
@@ -3256,15 +3512,20 @@ def perception_phases(smoke):
     return smoke.perception()
 
 
+def apps_phases(smoke):
+    """The apps phase (telemetry/, voice, cloning, nnvis: ROADMAP M15c)."""
+    return smoke.apps()
+
+
 def main(argv=None):
-    """``--only ppo`` (``bridge``, ``sharded``, ``perception``) runs the
-    device phase and the PPO phases (the bridge phases, the multi-device
-    phases, the perception phase) alone: a development aid, with no kernel
-    checked and no "ok" line."""
+    """``--only ppo`` (``bridge``, ``sharded``, ``perception``, ``apps``)
+    runs the device phase and the PPO phases (the bridge phases, the
+    multi-device phases, the perception phase, the apps phase) alone: a
+    development aid, with no kernel checked and no "ok" line."""
     import argparse
     p = argparse.ArgumentParser()
     p.add_argument("--only", choices=["ppo", "bridge", "sharded",
-                                      "perception"], default=None)
+                                      "perception", "apps"], default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
     import torch
@@ -3287,7 +3548,8 @@ def main(argv=None):
         smoke = Smoke(torch, dev)
         res = dict(ppo=ppo_phases, bridge=bridge_phases,
                    sharded=sharded_phases,
-                   perception=perception_phases)[args.only](smoke)
+                   perception=perception_phases,
+                   apps=apps_phases)[args.only](smoke)
         log(f"[summary] {args.only}: " + json.dumps(res))
         log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
         log(smi)
@@ -3346,6 +3608,8 @@ def main(argv=None):
     mark("ppo phases")
     perception = perception_phases(smoke)
     mark("perception")
+    apps = apps_phases(smoke)
+    mark("apps")
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
@@ -3376,6 +3640,7 @@ def main(argv=None):
     log("[summary] multi-device: " + json.dumps(sharded))
     log("[summary] ppo: " + json.dumps(ppo))
     log("[summary] perception: " + json.dumps(perception))
+    log("[summary] apps: " + json.dumps(apps))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,13 @@ scripted gait behaviours (:mod:`.gaits`), and perception: sim depth and
 ICP localization (:mod:`.slam`), the voxel map (:mod:`.mapping`),
 obstacles and avoidance (:mod:`.obstacle`), the monocular depth CNN
 (:mod:`.mono_depth`) behind the depth display loop (:mod:`.depth`), and the
-headless point-cloud viewer (:mod:`.pointcloud_viz`).  The JAX package's
-other apps (voice, the other viewers, dashboards) are not ported yet."""
+headless point-cloud viewer (:mod:`.pointcloud_viz`); the voice front end
+(:mod:`.voice`, :mod:`.voice_frontend`, :mod:`.voice_synth2`), behaviour
+cloning (:mod:`.cloning`), policy introspection (:mod:`.nnvis`), the
+keyboard driver of the simulation viewer (:mod:`.viewer_cli`), motor
+calibration (:mod:`.calibration`), the telemetry dashboards
+(:mod:`.dashboard`), the IMU visualizer (:mod:`.imu_viz`) and the camera
+stream viewer (:mod:`.camera_viewer`)."""
 from .gaits import (  # noqa: F401
     autocorrect_trot_cycle,
     motor_bringup,
@@ -55,4 +60,48 @@ from .slam import (  # noqa: F401
     point_to_plane_icp,
     render_depth,
     simulate_walk_localization,
+)
+from .calibration import (  # noqa: F401
+    PIDGains,
+    analyze_response,
+    firmware_power,
+    simulate_pid_response,
+    step_response,
+)
+from .camera_viewer import CameraViewer  # noqa: F401
+from .cloning import (  # noqa: F401
+    WalkPolicyNet,
+    cloned_lift_angles,
+    expert_action,
+    train_cloned_policy,
+)
+from .dashboard import (  # noqa: F401
+    render_terminal_dashboard,
+    serve_web_dashboard,
+    snapshot_from_body,
+)
+from . import imu_viz  # noqa: F401
+from .nnvis import (  # noqa: F401
+    activation_summary,
+    capture_activations,
+    render_activation_dashboard,
+)
+from .viewer_cli import build_viewer, handle  # noqa: F401
+from .voice import (  # noqa: F401
+    GaitMode,
+    RobotCommand,
+    VoiceGaitMachine,
+    parse_command,
+)
+from .voice_frontend import (  # noqa: F401
+    KeywordSpotter,
+    log_mel,
+    make_dtw_transcriber,
+    segment_stream,
+    synthesize_phrase,
+    synthesize_word,
+)
+from .voice_synth2 import (  # noqa: F401
+    lpc_synthesize_phrase,
+    lpc_synthesize_word,
 )

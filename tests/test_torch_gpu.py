@@ -1043,3 +1043,63 @@ def test_depth_cnn_forward_card_equals_cpu(cuda_device):
         want = net(x)
         got = net.to(cuda_device)(x.to(cuda_device)).cpu()
     assert (got - want).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_log_mel_card_equals_cpu(cuda_device):
+    """The voice features on the card against the CPU within 1e-4 (the
+    transform in float64 on both, the products in full float32), on a
+    noise-free word (near-silent frames) and a noisy one."""
+    from opendog_tpu_torch.apps import voice_frontend as vf
+    for kw in (dict(f0=130.0, seed=17), dict(f0=125.0, noise=0.02, seed=1)):
+        clip = vf.synthesize_word("perrito", **kw)
+        got = vf.log_mel(clip, device=cuda_device)
+        want = vf.log_mel(clip, device="cpu")
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_viewer_replayed_tick_equals_eager_tick(cuda_device):
+    """The SimViewer's tick replayed from its CUDA graph against the same
+    tick eager on the card: states and packets bit for bit, over a push
+    and a set_state."""
+    from opendog_tpu_torch.apps.viewer_cli import build_viewer
+    graph = build_viewer("opendog", device=cuda_device)
+    eager = build_viewer("opendog", device=cuda_device, graphs=False)
+    try:
+        for v in (graph, eager):
+            v.pause()
+        for step in range(3):
+            if step == 1:
+                for v in (graph, eager):
+                    v.apply_wrench(force=(8.0, 0.0, 0.0), duration_s=0.04)
+            if step == 2:
+                q = graph.snapshot().qpos.numpy().copy()
+                q[2] = 0.3
+                for v in (graph, eager):
+                    v.set_state(qpos=q)
+            a, b = graph.step_once(2), eager.step_once(2)
+            for f in ("qpos", "qvel", "time"):
+                assert torch.equal(getattr(a, f), getattr(b, f)), (step, f)
+            assert graph._packet() == eager._packet()
+        assert graph._graph is not None and eager._graph is None
+    finally:
+        graph.close()
+        eager.close()
+
+
+@pytest.mark.gpu
+def test_cloning_graph_training_equals_eager(cuda_device):
+    """train_cloned_policy's replayed steps against the same steps eager
+    on the card (both with the capturable Adam): the same weights bit for
+    bit after 50 steps."""
+    from opendog_tpu_torch.apps import cloning
+    draws = torch.from_numpy(np.random.default_rng(0).uniform(
+        -30, 30, (50, 256, 1)).astype(np.float32)).to(cuda_device)
+    nets = [cloning.train_cloned_policy(
+        draws=draws, num_steps=50,
+        generator=torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device, graphs=graphs) for graphs in (True, False)]
+    for a, b in zip(*(n.parameters() for n in nets)):
+        assert torch.equal(a, b)
