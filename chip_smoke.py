@@ -270,6 +270,17 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              capture_activations of the committed walk policy on 64
              observations equal to the CPU's under flax's keys (within
              1e-5 and 4 float32 ulps of each layer's largest value);
+  scripts  - the application scripts (scripts/torch_*.py) on their card
+             paths at smoke depth: torch_turn_mpc's run (the Go1 turn MPC
+             on K1, K=256 x H=25, 250 ticks replayed from a graph:
+             finite, upright, (25 + 1) x 251 flat launches with the
+             capture's warm-up), two ticks of torch_jump_mpc's op-graph
+             solve on the jump box at its full width (K=512, H=50: finite,
+             no kernel launch) and one 500-tick segment of torch_soak_cmd
+             (the committed command student runs/distill_cmd on the K1
+             plant at K=1: finite, upright, 501 launches; its record beside
+             the JAX record runs/distill_cmd/soak.json, mean_vx and yaw_end
+             each within 0.01 of it);
   profile  - torch.profiler over 3 ticks (10 before the multi-device
              phases) of the flat, terrain and
              exact-terrain loops, eager and graph;
@@ -324,9 +335,6 @@ DROP_BAND = (0.03, 0.21)
 STAND_BAND = (0.03, 0.15)
 MIN_FINAL_X = 0.5      # m trotted forward by the flat loop
 CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # kernel vs plain, max abs error
-# the substep of the kernels' design; the entry points are in
-# substep_kernel.cu
-SOURCE = "opendog_tpu_torch/csrc/substep_warp.cuh"
 ROLLOUT = dict(K=256, dt=0.01, n=2)
 RAGGED = dict(K=257, dt=0.01, n=2)  # one rollout past the MPPI paths' K
 PLANT = dict(K=1, dt=0.002, n=10)
@@ -423,6 +431,12 @@ VOICE_PHRASES = ((("perrito", "camina"), dict(f0=140.0, rate=1.08,
                  (("perrito", "para"), dict(f0=105.0, rate=0.92, noise=0.03,
                                             seed=12), "para"))
 VOICE_REPS = 20            # timed log_mel calls
+SCRIPT_TURN_TICKS = 250    # torch_turn_mpc's run, the script's ticks
+SCRIPT_JUMP_TICKS = 2      # torch_jump_mpc's op-graph ticks at full width
+SCRIPT_SOAK_TICKS = 500    # one segment of torch_soak_cmd (10 s)
+# segment 0 vs runs/distill_cmd/soak.json, per key (the card matched the
+# record's printed digits, 0.42 and 0.062)
+SOAK_RECORD_TOL = {"mean_vx_cmd_frame": 0.01, "yaw_end": 0.01}
 CLONING_BAND_DEG = 2.5     # tests/test_apps_extra.py:38-44
 CLONING_EQ_STEPS = 20      # graph vs eager cloning steps on the same draws
 NNVIS_TOL = 1e-5           # capture_activations, card vs CPU, plus 4 float32
@@ -498,23 +512,6 @@ def random_modes(model, K, with_plane=False, with_payload=False, seed=1):
     if with_payload:
         payload = rng.uniform(0.0, 3.0, (1, K)).astype(np.float32)
     return plane, payload
-
-
-def event_ms(torch, fn, reps, warm_up=True):
-    """Mean milliseconds of fn() over reps calls, timed with CUDA events
-    after one warm-up call (``warm_up=False``: fn ran before, as the plain
-    versions did in the check phase)."""
-    if warm_up:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def graph_nodes(graph):
@@ -1663,7 +1660,7 @@ class Smoke:
         from opendog_tpu_torch.rl.distill import DistillConfig, make_distiller
         from opendog_tpu_torch.rl.distill_zoo import cmd_distill_setup
         from opendog_tpu_torch.solvers import mppi
-        script = distill_script()
+        script = script_module("torch_distill_cmd")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
@@ -1877,7 +1874,7 @@ class Smoke:
                                                       load_student,
                                                       trot_distill_setup)
         from opendog_tpu_torch.utils.cmd_tracking import segment_record
-        script = distill_script()
+        script = script_module("torch_distill_cmd")
         grid = script.EVAL_CMDS_BY_ROBOT["go1"]
         S, out = len(grid), {}
         for run, setup_fn, cmd_dim in (
@@ -1942,6 +1939,83 @@ class Smoke:
                     "plant; a record, not a target): " + json.dumps(rows))
                 rec["per_command"] = rows
             out[run] = rec
+        return out
+
+    # -- the application scripts (scripts/torch_*.py) ---------------------
+    def scripts(self):
+        """[scripts]: the turn MPC, two jump ticks and one soak segment
+        through the scripts' own ``run`` functions (module docstring)."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.assets import load_go1
+        turn, jump, soak = (script_module(f"torch_{name}") for name in
+                            ("turn_mpc", "jump_mpc", "soak_cmd"))
+        warm = int(dev.type == "cuda")   # a graph's eager warm-up call
+        out = {}
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, res
+
+        def finite(label, x):
+            if not np.isfinite(x).all():
+                raise RuntimeError(f"[scripts] {label}: non-finite output")
+
+        n, cfg = SCRIPT_TURN_TICKS, turn.CONFIG
+        wall, q = self.counted("scripts turn", lambda: timed(
+            lambda: turn.run(self.go1, n, cfg, generator=torch.Generator(
+                device=dev).manual_seed(0)).cpu().numpy()),
+            {cs.launch_key(cfg["num_samples"], cfg["n_substeps"]):
+             cfg["horizon"] * (n + warm),
+             cs.launch_key(PLANT["K"], PLANT["n"]): n + warm})
+        finite("turn", q)
+        rec = turn.summarize(q, n)
+        log(f"[scripts] turn: {n} ticks in {wall:.3f} s (the capture "
+            f"included): " + json.dumps(rec))
+        if not rec["upright"]:
+            raise RuntimeError("[scripts] turn: the trunk rolled or pitched "
+                               "past 0.3 rad")
+        out["turn"] = dict(rec, wall_s=wall)
+
+        mj = load_go1("jump", device=dev)
+        wall, (qps, contact) = self.counted("scripts jump", lambda: timed(
+            lambda: jump.run(mj, SCRIPT_JUMP_TICKS, jump.CONFIG,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(0))), {})
+        finite("jump", qps)
+        log(f"[scripts] jump: {SCRIPT_JUMP_TICKS} ticks of the op-graph "
+            f"solve at K={jump.CONFIG['num_samples']}, H="
+            f"{jump.CONFIG['horizon']} in {wall:.3f} s (the capture "
+            f"included): "
+            f"qpos[:3] {qps[-1, :3].round(4).tolist()}, paws in contact "
+            f"{contact.tolist()}")
+        out["jump"] = dict(wall_s=wall, final_qpos3=qps[-1, :3].tolist())
+
+        setup, policy = soak.soak_policy(
+            "go1", os.path.join(ROOT, "runs", "distill_cmd",
+                                "student.msgpack"), dev)
+        schedule = soak.SCHEDULE_BY_ROBOT["go1"][:1]
+        n = SCRIPT_SOAK_TICKS
+        wall, (xyz, quat) = self.counted("scripts soak", lambda: timed(
+            lambda: soak.run(setup, policy, schedule, n)),
+            {cs.launch_key(PLANT["K"], PLANT["n"]): n + warm})
+        finite("soak", xyz)
+        rec = soak.summarize("go1", schedule, n, xyz, quat, setup.z_band)
+        seg = rec["segments"][0]
+        with open(os.path.join(ROOT, "runs", "distill_cmd",
+                               "soak.json")) as f:
+            jax_seg = json.load(f)["segments"][0]
+        log(f"[scripts] soak: segment 0 of the committed student, {n} "
+            f"ticks in {wall:.3f} s: {json.dumps(seg)}; the JAX record (a "
+            f"TPU's Pallas plant): {json.dumps(jax_seg)}")
+        if not rec["upright_all"]:
+            raise RuntimeError("[scripts] soak: the trunk left the z band")
+        for key, tol in SOAK_RECORD_TOL.items():
+            if not abs(seg[key] - jax_seg[key]) <= tol:
+                raise RuntimeError(f"[scripts] soak: {key} {seg[key]} vs "
+                                   f"the JAX record's {jax_seg[key]}")
+        out["soak"] = dict(seg, wall_s=wall)
         return out
 
     # -- the robot bridge over the wire (apps/mpc_bridge.py) -------------
@@ -2161,7 +2235,7 @@ class Smoke:
                                    f"{np.abs(got - want).max()}")
         log("[student-bridge] the student's CUDA graph equals its eager "
             "policy bit for bit on 3 random states and commands")
-        script = bridge_script()
+        script = script_module("torch_cmd_student_bridge")
         out = self.counted("student-bridge", lambda: script.run(
             os.path.join(ROOT, "runs", "distill_cmd_opendog"),
             STUDENT_BRIDGE_PORT, STUDENT_BRIDGE_T, (50.0,), device=self.dev,
@@ -2240,6 +2314,7 @@ class Smoke:
         torch, dev = self.torch, self.dev
         from opendog_tpu_torch.apps import mapping, mono_depth, obstacle, slam
         from opendog_tpu_torch.physics import terrain as terrain_lib
+        from opendog_tpu_torch.utils.profiling import event_ms
         m, terr = self.dog_t, self.terrain
         mc, terr_c = m.to("cpu"), terr.to("cpu")
         tol, smi = PERCEPTION_TOL, nvidia_smi_line()
@@ -2369,7 +2444,7 @@ class Smoke:
 
         # timings
         pose = torch.tensor(PERCEPTION_POSES[0], device=dev)
-        render_ms = event_ms(torch, lambda: slam.render_depth(m, terr, pose),
+        render_ms = event_ms(lambda: slam.render_depth(m, terr, pose),
                              PERCEPTION_REPS)
         loc = slam.TerrainLocalizer(m, terr)
         loc.update(0.25, 0.0, 0.0, 0.1, frame)      # warm-up
@@ -2389,7 +2464,7 @@ class Smoke:
             torch.mean((dnet(xb) - yb) ** 2).backward()
             opt.step()
 
-        adam_ms = event_ms(torch, adam_step, PERCEPTION_REPS)
+        adam_ms = event_ms(adam_step, PERCEPTION_REPS)
         times = dict(render_depth_ms_per_frame=render_ms,
                      localizer_update_ms=update_ms, adam_step_ms=adam_ms,
                      train_depth_net_s=train["seconds"],
@@ -2520,6 +2595,7 @@ class Smoke:
     def voice_check(self):
         torch, dev = self.torch, self.dev
         from opendog_tpu_torch.apps import voice, voice_frontend as vf
+        from opendog_tpu_torch.utils.profiling import event_ms
         card, cpu = vf.KeywordSpotter(device=dev), vf.KeywordSpotter(
             device="cpu")
         err = max(float(np.abs(a - b).max()) for w in vf.VOCABULARY
@@ -2545,7 +2621,7 @@ class Smoke:
                                    f"({cmd}) on the card")
             transcripts[" ".join(words)] = text
         clip = vf.synthesize_word("izquierda", f0=125.0, noise=0.02, seed=1)
-        ms = event_ms(torch, lambda: vf.log_mel(clip, device=dev),
+        ms = event_ms(lambda: vf.log_mel(clip, device=dev),
                       VOICE_REPS)
         log(f"[apps] voice: {2 * len(vf.VOCABULARY)} words and "
             f"{len(transcripts)} phrases right; {ms:.4f} ms per log_mel "
@@ -2847,11 +2923,12 @@ class Smoke:
         torch = self.torch
         from opendog_tpu_torch.physics import dynamics
         from opendog_tpu_torch.solvers import GraphedTick
+        from opendog_tpu_torch.utils.profiling import event_ms
         planes = lambda q: dynamics.geom_local_planes(self.dog_t, self.terrain,
                                                       q)
         fn = lambda: planes(qpos)
         graphed = GraphedTick(planes, (qpos,), self.dev)
-        graph_ms = event_ms(torch, lambda: graphed(graphed.inputs[0]), reps)
+        graph_ms = event_ms(lambda: graphed(graphed.inputs[0]), reps)
         tick_ms = self.pairs["terrain"]["graph_ms"]
         log(f"[profile] geom_local_planes replayed from a CUDA graph: "
             f"{graph_ms:.4f} ms per call (CUDA events); 2 calls are "
@@ -2864,7 +2941,7 @@ class Smoke:
             fn()
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0) / reps
-        ev_ms = event_ms(torch, fn, reps)
+        ev_ms = event_ms(fn, reps)
         launches = "not measured"
         try:
             from torch.autograd import DeviceType
@@ -3231,9 +3308,9 @@ class Smoke:
 
     # -- timing -----------------------------------------------------------
     def timing(self):
-        from opendog_tpu_torch.ops import scalar_core
-        from opendog_tpu_torch.utils.profiling import CHIP_PEAKS
-        torch = self.torch
+        from opendog_tpu_torch.utils.profiling import (CHIP_PEAKS, event_ms,
+                                                       substep_bound,
+                                                       substep_row)
         peak_flops = CHIP_PEAKS["h100"]["fp32_flops"]
         peak_bytes = CHIP_PEAKS["h100"]["hbm_bytes"]
         kernels = []
@@ -3241,18 +3318,13 @@ class Smoke:
             shape, model = rec["shape"], rec["model"]
             K, n = shape["K"], shape["n"]
             args = rec["args"]
-            ms = event_ms(torch, lambda: rec["kern"](*args),
+            ms = event_ms(lambda: rec["kern"](*args),
                           200 if n * K < 20000 else 50)
             # the check phase's call of the plain version was its warm-up
-            plain_ms = event_ms(torch, lambda: rec["plain"](*args), 1,
+            plain_ms = event_ms(lambda: rec["plain"](*args), 1,
                                 warm_up=False)
-            ops = scalar_core.count_substep_ops(
-                model, shape["dt"], *rec["modes"]) * K * n
-            nbytes = 4 * sum(a.numel() for a in args if a is not None) + 4 * K * (
-                model.nq + model.nv)
-            t_ops, t_bytes = ops / peak_flops, nbytes / peak_bytes
-            bound_ms = 1e3 * max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            bound = substep_bound(model, shape["dt"], n, rec["modes"], args)
+            bound_ms, bound_by, ops, nbytes = bound
             design = self.cs.KERNEL_DESIGNS[rec["name"]]
             log(f"[timing] {label} ({rec['name']}, {design} design) K={K} "
                 f"x{n}: kernel "
@@ -3262,20 +3334,10 @@ class Smoke:
                 f"{100 * bound_ms / ms:.3f}% of bound); "
                 f"launches on the paths {rec['launches']}; library call: "
                 f"none computes this function")
-            kernels.append({
-                "name": f"{rec['name']} ({label}: K={K}, {n} substeps)",
-                "route": "cuda",
-                "design": design,
-                "source": SOURCE,
-                "replaces": "opendog_tpu/ops/pallas_step.py:115",
-                "launches": rec["launches"],
-                "max_abs_err": rec["err"],
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": None,
-            })
+            kernels.append(dict(substep_row(
+                f"{rec['name']} ({label}: K={K}, {n} substeps)",
+                rec["launches"], rec["err"], ms, plain_ms, bound),
+                design=design))
         for label, rec in self.records.items():
             if rec["launches"] < 1:
                 raise RuntimeError(f"[timing] {label}: no path launched "
@@ -3283,25 +3345,11 @@ class Smoke:
         return kernels
 
 
-def distill_script():
-    """scripts/torch_distill_cmd.py as a module: its eval grid and start
-    jitter."""
+def script_module(name):
+    """scripts/<name>.py as a module (its main not run)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "torch_distill_cmd", os.path.join(ROOT, "scripts",
-                                          "torch_distill_cmd.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def bridge_script():
-    """scripts/torch_cmd_student_bridge.py as a module: its schedule, run
-    and summary."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_cmd_student_bridge", os.path.join(
-            ROOT, "scripts", "torch_cmd_student_bridge.py"))
+        name, os.path.join(ROOT, "scripts", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3517,15 +3565,22 @@ def apps_phases(smoke):
     return smoke.apps()
 
 
+def scripts_phases(smoke):
+    """The application scripts' phase (scripts/torch_*.py)."""
+    return smoke.scripts()
+
+
 def main(argv=None):
-    """``--only ppo`` (``bridge``, ``sharded``, ``perception``, ``apps``)
-    runs the device phase and the PPO phases (the bridge phases, the
-    multi-device phases, the perception phase, the apps phase) alone: a
-    development aid, with no kernel checked and no "ok" line."""
+    """``--only ppo`` (``bridge``, ``sharded``, ``perception``, ``apps``,
+    ``scripts``) runs the device phase and the PPO phases (the bridge
+    phases, the multi-device phases, the perception phase, the apps phase,
+    the scripts' phase) alone: a development aid, with no kernel checked
+    and no "ok" line."""
     import argparse
     p = argparse.ArgumentParser()
     p.add_argument("--only", choices=["ppo", "bridge", "sharded",
-                                      "perception", "apps"], default=None)
+                                      "perception", "apps", "scripts"],
+                   default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
     import torch
@@ -3549,7 +3604,8 @@ def main(argv=None):
         res = dict(ppo=ppo_phases, bridge=bridge_phases,
                    sharded=sharded_phases,
                    perception=perception_phases,
-                   apps=apps_phases)[args.only](smoke)
+                   apps=apps_phases,
+                   scripts=scripts_phases)[args.only](smoke)
         log(f"[summary] {args.only}: " + json.dumps(res))
         log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
         log(smi)
@@ -3610,6 +3666,8 @@ def main(argv=None):
     mark("perception")
     apps = apps_phases(smoke)
     mark("apps")
+    scripts = scripts_phases(smoke)
+    mark("scripts")
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
@@ -3641,6 +3699,7 @@ def main(argv=None):
     log("[summary] ppo: " + json.dumps(ppo))
     log("[summary] perception: " + json.dumps(perception))
     log("[summary] apps: " + json.dumps(apps))
+    log("[summary] scripts: " + json.dumps(scripts))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,6 +48,12 @@ class GraphedTick:
     collection there may free an unreachable object that owns another CUDA
     graph, and destroying a graph while a stream captures invalidates the
     capture (PyTorch no longer collects before a capture).
+
+    The graph keeps ``fn`` (``self.fn``), and through it every tensor that
+    ``fn`` reads without taking it as an input (a kernel's model table, a
+    cost's constants): the graph holds their device addresses, and were
+    they freed, the allocator would hand their memory to other tensors
+    while replays still read it.
     """
 
     def __init__(self, fn: Callable, example_inputs: Sequence[torch.Tensor],
@@ -55,6 +61,7 @@ class GraphedTick:
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
+        self.fn = fn
         self.inputs = tuple(torch.empty_like(x, device=device).copy_(x)
                             for x in example_inputs)
         with torch.cuda.device(device):

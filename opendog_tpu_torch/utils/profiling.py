@@ -14,6 +14,10 @@ package's ``utils/profiling.py``, on PyTorch:
   ones weighted), products by 2mnk.
 * :func:`roofline` — compares a measured runtime against the
   arithmetic-bound and memory-bound lower limits for a given chip.
+* :func:`event_ms` — a function's mean time on the card, by CUDA events.
+* :func:`substep_bound` and :func:`substep_row` — a substep kernel's bound
+  and its row of the ``kernels`` line that ``chip_smoke.py`` and the
+  application scripts print.
 """
 from __future__ import annotations
 
@@ -30,6 +34,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 CHIP_PEAKS = {
     "h100": dict(fp32_flops=67e12, hbm_bytes=3.35e12),
 }
+
+# the substep of the kernels' design (the entry points are in
+# substep_kernel.cu) and the TPU kernel it replaces, for the kernels' rows
+SUBSTEP_SOURCE = "opendog_tpu_torch/csrc/substep_warp.cuh"
+SUBSTEP_REPLACES = "opendog_tpu/ops/pallas_step.py:115"
 
 # the JAX package's weights (its ``_ELEMENTWISE_1`` / ``_ELEMENTWISE_N``),
 # keyed by the aten op that computes each primitive
@@ -133,3 +142,49 @@ def roofline(measured_s: float, flops: float, bytes_moved: float,
         pct_of_compute_sol=100.0 * fb / max(measured_s, 1e-12),
         pct_of_hbm_sol=100.0 * hb / max(measured_s, 1e-12),
     )
+
+
+def event_ms(fn, reps: int, warm_up: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls, timed with CUDA
+    events after one warm-up call (``warm_up=False``: ``fn`` ran before)."""
+    if warm_up:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def substep_bound(model, dt: float, n_substeps: int, modes, args,
+                  chip: str = "h100"):
+    """(bound_ms, bound_by, ops, nbytes) of one substep kernel launch on
+    ``args`` ((rows, K) tensors: qpos, qvel, ctrl and the mode's plane and
+    payload rows; None for a row the mode lacks), ``modes`` = (with_plane,
+    with_payload): the larger of its operations
+    (``ops/scalar_core.count_substep_ops`` per lane and substep) over the
+    chip's float32 peak and its bytes (each input read once, qpos and qvel
+    written once) over its memory rate."""
+    from opendog_tpu_torch.ops import scalar_core
+    args = [a for a in args if a is not None]
+    K = args[0].shape[-1]
+    ops = scalar_core.count_substep_ops(model, dt, *modes) * K * n_substeps
+    nbytes = 4 * (sum(a.numel() for a in args) + K * (model.nq + model.nv))
+    peaks = CHIP_PEAKS[chip]
+    t_ops, t_bytes = ops / peaks["fp32_flops"], nbytes / peaks["hbm_bytes"]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def substep_row(name: str, launches: int, max_abs_err: float, ms: float,
+                plain_ms: float, bound) -> Dict[str, Any]:
+    """A substep kernel's row of a ``kernels`` line: ``bound`` is
+    :func:`substep_bound`'s; no library call computes the step."""
+    return {"name": name, "route": "cuda", "source": SUBSTEP_SOURCE,
+            "replaces": SUBSTEP_REPLACES, "launches": int(launches),
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}

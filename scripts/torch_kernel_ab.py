@@ -14,7 +14,8 @@ Each checkout runs in its own process, builds its own kernels and computes,
 with the functions of its own ``chip_smoke.py`` (the same numpy and torch
 seeds in both), each kernel's output and its plain version's output at its
 paths' shapes, and times each kernel with CUDA events
-(``chip_smoke.event_ms``):
+(``utils/profiling.event_ms``; a checkout from before it moved there
+out of ``chip_smoke.py`` does not run):
   K1, K2  random Go1 states (``random_batch``; K2 with the payloads U(0, 3)
           kg of ``random_modes``) at the flat MPC path's two shapes (MPPI
           rollout K=256 x 2 substeps of 10 ms, plant K=1 x 10 of 2 ms);
@@ -60,11 +61,11 @@ import sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-from chip_smoke import (batch_inputs, event_ms, random_batch, random_modes,
-                        terrain_batch)
+from chip_smoke import batch_inputs, random_batch, random_modes, terrain_batch
 from opendog_tpu_torch.assets import load_go1, load_opendog
 from opendog_tpu_torch.ops import cuda_step
 from opendog_tpu_torch.physics import terrain as terrain_lib
+from opendog_tpu_torch.utils.profiling import event_ms
 dev = torch.device("cuda", 0)
 models = {"go1": load_go1("flat", device=dev),
           "opendog": load_opendog("terrain", device=dev),
@@ -97,7 +98,7 @@ for name, robot, with_plane, with_payload, shapes in %r:
                                                with_payload)(*args)
         torch.cuda.synchronize()
         tag = f"{name}_K{K}x{n}"
-        out[f"{tag}_ms"] = np.float64(event_ms(torch, lambda: kern(*args), %d))
+        out[f"{tag}_ms"] = np.float64(event_ms(lambda: kern(*args), %d))
         for key, t in zip(("in_qpos", "in_qvel", "in_ctrl", "in_plane",
                            "in_payload"), args):
             if t is not None:

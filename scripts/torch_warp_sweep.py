@@ -43,12 +43,12 @@ import tempfile
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import (batch_inputs, event_ms,  # noqa: E402
-                        nvidia_smi_line, random_batch, random_modes,
-                        terrain_batch)
+from chip_smoke import (batch_inputs, nvidia_smi_line,  # noqa: E402
+                        random_batch, random_modes, terrain_batch)
 from opendog_tpu_torch.assets import load_go1, load_opendog  # noqa: E402
 from opendog_tpu_torch.ops import build, cuda_step  # noqa: E402
 from opendog_tpu_torch.physics import terrain as terrain_lib  # noqa: E402
+from opendog_tpu_torch.utils.profiling import event_ms  # noqa: E402
 
 WARPS = (1, 2, 4, 8)
 ROLLOUT, PLANT = (256, 0.01, 2), (1, 0.002, 10)
@@ -185,7 +185,7 @@ def main() -> int:
                            for r in runs for i in range(2))
                 ms = {r: [] for r in runs}
                 for r in runs + runs[::-1]:
-                    ms[r].append(event_ms(torch, fns[r], REPS))
+                    ms[r].append(event_ms(fns[r], REPS))
                 ok = ok and same
                 results.append({"kernel": name, "shape": f"K={K} x{n}",
                                 "bit_identical_across_W": same,

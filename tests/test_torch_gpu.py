@@ -283,6 +283,50 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
 
 
 @pytest.mark.gpu
+def test_graph_tick_outlives_the_eager_tick(cuda_device):
+    """A graph_tick whose eager tick, solver and kernel steps are no longer
+    referenced anywhere else (the MPC built inside a function that returns
+    the graphed tick alone) replays the same bits as the eager tick after
+    the freed memory has been handed to other tensors: the graph keeps
+    what it reads (the kernels' model tables, the cost's constants)
+    alive.  Before GraphedTick kept its function, such a replay read
+    reused memory (scripts/torch_lag_sweep.py: an illegal instruction on
+    an H100)."""
+    import gc
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import graph_tick, make_mpc
+    m, cost = _go1_trot(cuda_device)
+    cfg = _bench_config()
+    normals = _normals(3, cfg, m.nu, cuda_device)
+    init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=10,
+                             device=cuda_device)
+    carry0 = init(None, make_state(m, "home"))
+    eager, carry = [], carry0
+    for n in normals:
+        carry, out = tick(carry, n)
+        eager.append(out["qpos"].clone())
+
+    def graphed_only():
+        m2, cost2 = _go1_trot(cuda_device)
+        init2, tick2, _ = make_mpc(m2, cost2, cfg, plant_substeps=10,
+                                   device=cuda_device)
+        c = init2(None, make_state(m2, "home"))
+        return graph_tick(tick2, c, normals[0]), c
+
+    gtick, carry = graphed_only()
+    gc.collect()
+    # NaN into the freed blocks: the caching allocator hands them to new
+    # tensors of every size class (the model's and the cost's tensors, the
+    # kernels' tables are small)
+    filler = [torch.full((n,), float("nan"), device=cuda_device)
+              for n in (2 ** k for k in range(17)) for _ in range(256)]
+    for n, want in zip(normals, eager):
+        carry, out = gtick(carry, n)
+        assert torch.equal(out["qpos"], want)
+    del filler
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("path", ["flat", "per_geom"])
 def test_graph_payload_solve_equals_eager(cuda_device, path):
     """Both payload solves replayed from a CUDA graph equal the eager solve

@@ -71,6 +71,31 @@ def test_roofline_reads_the_h100_peaks():
     assert "SoL" in r.report()
 
 
+def test_substep_bound_gives_the_kernel_tables_counts():
+    """``substep_bound`` at the Go1 rollout's shape (K=256 x2 at 10 ms) on
+    the flat and the payload kernels gives the kernel table's operations
+    and bytes (PERF.md), bound by operations; ``substep_row`` has the keys
+    of a row of chip_smoke.py's ``kernels`` line."""
+    from opendog_tpu_torch.assets import load_go1
+    m = load_go1("flat", device="cpu")
+    K = 256
+    args = [torch.zeros(m.nq, K), torch.zeros(m.nv, K), torch.zeros(m.nu, K),
+            None]
+    for payload, ops, nbytes in ((None, 25_131_520, 88_064),
+                                 (torch.zeros(1, K), 25_134_080, 89_088)):
+        bound = profiling.substep_bound(m, 0.01, 2, (False, payload is not
+                                                     None), args + [payload])
+        assert bound == (1e3 * ops / 67e12, "operations", ops, nbytes)
+    row = profiling.substep_row("substep_payload (rollout)", 25, 0.0, 0.06,
+                                1262.4, bound)
+    assert set(row) == {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+    assert row["source"] == "opendog_tpu_torch/csrc/substep_warp.cuh"
+    assert row["replaces"] == "opendog_tpu/ops/pallas_step.py:115"
+    assert (row["bound_ms"], row["library_ms"]) == (bound[0], None)
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "prof")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
