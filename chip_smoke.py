@@ -24,7 +24,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              (K=256 x 2); flat at the robot bridge's OpenDOG shapes (MPPI
              rollout K=256 x 2, compensated predictor K=1 x 10); flat at
              the multi-device phases' one-process reference (Go1 K=512 x
-             2); flat and payload at the distiller's shapes (Go1
+             2) and the multi-process MPPI's OpenDOG K=64 x 2 per rank; flat
+             and payload at the distiller's shapes (Go1
              expert K=4096 x 2, plant K=8 x 10; OpenDOG bench 5 expert
              K=512 x 2); and, check only, all six at a ragged K=257 x 2 and
              flat at bench 5's OpenDOG plant K=8 x 10;
@@ -176,6 +177,21 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the one-process K=512 solve on the same normals, 125 K1
              launches per rank; sharded_suffix_scan (L=51, nx=37) within
              2e-4 of the unsharded scan; ms per solve and the card;
+  multidev - the three multi-device scripts, each a subprocess that starts
+             its ranks at world size 1 over NCCL (the three at once, each
+             in its own process group, killed whole after 420 s), at their full
+             per-rank widths, cut in ticks only:
+             torch_multiprocess_scaling.py --nprocs 1 --ticks 2 (MPPI on
+             OpenDOG at K=64 x H=10 on K1, its solve replayed from a graph
+             that holds the NCCL all_reduces; 128 op-graph envs),
+             torch_scaling_bench.py --device-counts 1 --steps 2 (64
+             WalkEnvs) and torch_comm_volume.py --ranks 1 --reps 2 (Go1
+             MPPI at K=4096 x H=25, the horizon-sharded iLQR at H=64, PPO's
+             16 x 16 chunk): each record's keys, finite results, backend
+             nccl, the comm-volume counts of calls and bytes equal to
+             COMM_COUNTS_1, and the K1 launches of the ranks' timed windows
+             (2 x 10 at OpenDOG K=64 x2, 2 x 25 at Go1 K=4096 x2), which go
+             to those rows;
   mpc-bridge - the robot bridge over the wire (apps/mpc_bridge.py): the
              port's firmware_sim built from native/ with g++ and two of it
              spawned on loopback (the robot's two motor ESP32s: UDP/JSON
@@ -410,6 +426,22 @@ SHARDED_REF = dict(K=SHARDED_RANKS * 256, dt=0.01, n=2)  # one-process solve
 SHARDED_TOL = 1e-5         # rank 0 vs the one-process solve (sum order)
 SCAN_TOL = 2e-4            # sharded_suffix_scan vs the unsharded scan
 SHARDED_TIMEOUT_S = 300    # the spawned ranks, rendezvous included
+# [multidev]: the three multi-device scripts at world size 1 over NCCL, at
+# their full per-rank widths, cut in ticks only
+MULTIDEV_TICKS = 2         # torch_multiprocess_scaling --ticks (the script: 10)
+MULTIDEV_STEPS = 2         # torch_scaling_bench --steps (the script: 20)
+MULTIDEV_REPS = 2          # torch_comm_volume --reps (the script: 20 / 3 / 2)
+MULTIDEV_ROLLOUT = dict(K=64, dt=0.01, n=2)  # the mppi mode's OpenDOG K / rank
+MULTIDEV_TIMEOUT_S = 420   # each script, its ranks' rendezvous included
+# torch_comm_volume's counts at world size 1 (calls and bytes handed to
+# dist.all_reduce), the ones tests/test_torch_scripts_multidev.py asserts
+COMM_COUNTS_1 = {
+    "mppi_sample_sharded_k4096": dict(
+        psum=dict(calls=1, bytes=1212), pmin=dict(calls=1, bytes=4)),
+    "ilqr_horizon_sharded_h64": dict(all_gather=dict(calls=4,
+                                                     bytes=2207568)),
+    "ppo_dp_gradient_allreduce": dict(pmean=dict(calls=13, bytes=424524)),
+}
 # [perception] (ROADMAP M15b): the JAX package's defaults throughout
 PERCEPTION_POSES = ((0.2, 0.1, 0.3), (0.3, -0.2, 0.2), (-1.0, 0.7, 2.5))
 PERCEPTION_TOL = dict(render_m=1e-5, icp=1e-5, fractal_m=1e-5, cnn_m=1e-4)
@@ -685,6 +717,12 @@ class Smoke:
         # the shape)
         self.check("flat sharded reference", go1, SHARDED_REF, False, False,
                    random_batch(go1, SHARDED_REF["K"]) + none,
+                   exclusive=True)
+        # [multidev]'s mppi mode: OpenDOG at 64 rollouts per rank; its
+        # launches are counted in the script's rank and read by that phase
+        self.check("flat multidev rollout", dog, MULTIDEV_ROLLOUT, False,
+                   False, random_batch(dog, MULTIDEV_ROLLOUT["K"],
+                                       on_ground=True) + none,
                    exclusive=True)
         # the launch counter keys by shape, not model: bench 5's OpenDOG
         # plant counts under the Go1 plant's row
@@ -3306,6 +3344,125 @@ class Smoke:
         return dict(ms_per_solve=per_solve, max_abs_vs_one_process=err,
                     scan_max_abs=scan_err, wall_s=wall)
 
+    # -- the multi-device scripts ------------------------------------------
+    def multidev(self):
+        """[multidev]: scripts/torch_multiprocess_scaling.py,
+        torch_scaling_bench.py and torch_comm_volume.py, each a subprocess
+        (its own process group, killed whole on the time limit) that starts its
+        ranks at world size 1 over NCCL on the card, the three at once.
+        Each record must carry the JAX record's keys, finite results and the
+        backend nccl; the comm-volume counts must equal COMM_COUNTS_1; the
+        ranks' kernel launches over their timed windows go to the K1 rows
+        of their shapes."""
+        import signal
+        import tempfile
+        cs = self.cs
+        jobs = dict(
+            multiprocess_scaling=["--nprocs", "1", "--ticks",
+                                  str(MULTIDEV_TICKS)],
+            scaling_bench=["--device-counts", "1", "--steps",
+                           str(MULTIDEV_STEPS)],
+            comm_volume=["--ranks", "1", "--reps", str(MULTIDEV_REPS)])
+        if self.dev.type != "cuda":
+            for args in jobs.values():
+                args += ["--device", "cpu"]
+        with tempfile.TemporaryDirectory() as tmp:
+            procs, logs = {}, {}
+            t0 = time.perf_counter()
+            for name, args in jobs.items():
+                logs[name] = open(os.path.join(tmp, name + ".log"), "w+")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "scripts",
+                                                  f"torch_{name}.py"),
+                     *args, "--out", os.path.join(tmp, name)],
+                    cwd=ROOT, stdout=logs[name], stderr=subprocess.STDOUT,
+                    start_new_session=True)
+            try:
+                while any(p.poll() is None for p in procs.values()):
+                    if time.perf_counter() - t0 > MULTIDEV_TIMEOUT_S:
+                        raise RuntimeError("[multidev] the scripts did not "
+                                           f"end in {MULTIDEV_TIMEOUT_S} s")
+                    time.sleep(0.2)
+            finally:
+                for p in procs.values():
+                    if p.poll() is None:
+                        os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+            wall = time.perf_counter() - t0
+            for name, p in procs.items():
+                logs[name].seek(0)
+                text = logs[name].read()
+                logs[name].close()
+                if p.returncode != 0:
+                    raise RuntimeError(f"[multidev] torch_{name}.py exited "
+                                       f"{p.returncode}:\n{text[-6000:]}")
+            recs = {}
+            for name in jobs:
+                with open(os.path.join(tmp, name, "metrics.json")) as f:
+                    recs[name] = json.load(f)
+        backend = "nccl" if self.dev.type == "cuda" else "gloo"
+        for name, rec in recs.items():
+            if rec["backend"] != backend:
+                raise RuntimeError(f"[multidev] {name}: backend "
+                                   f"{rec['backend']}, not {backend}")
+        mps, sb, cv = (recs[k] for k in jobs)
+        for key in ("mppi_weak_scaling", "env_rollout_weak_scaling"):
+            for e in mps[key]:
+                missing = {"mode", "nproc", "finite",
+                           "weak_scaling_efficiency"} - set(e)
+                if missing or not e["finite"]:
+                    raise RuntimeError(f"[multidev] multiprocess {key}: "
+                                       f"missing {missing} or not finite")
+        mppi, envs = mps["mppi_weak_scaling"][0], mps[
+            "env_rollout_weak_scaling"][0]
+        K, n = MULTIDEV_ROLLOUT["K"], MULTIDEV_ROLLOUT["n"]
+        # solves x the script's horizon (10)
+        want = {cs.launch_key(K, n): MULTIDEV_TICKS * 10}
+        if self.dev.type != "cuda":
+            want = {}   # the plain version counts no launch
+        for label, got, expect in (("mppi", mppi["launches"], want),
+                                   ("envs", envs["launches"], {})):
+            log(f"[multidev] multiprocess {label} kernel launches (rank 0, "
+                f"timed window): {got}")
+            if got != expect:
+                raise RuntimeError(f"[multidev] multiprocess {label} "
+                                   f"launches {got} != {expect}")
+        self.attribute(mppi["launches"], rows=["flat multidev rollout"])
+        if not (sb["1"]["env_steps_per_sec"] > 0 and sb["finite"]):
+            raise RuntimeError(f"[multidev] scaling_bench: {sb}")
+        for section, counts in COMM_COUNTS_1.items():
+            rec = cv[section]
+            got = rec["by_collective"]
+            if got != counts:
+                raise RuntimeError(f"[multidev] comm_volume {section}: "
+                                   f"counts {got} != {counts}")
+            unit = "chunk_ms" if "ppo" in section else "solve_ms"
+            times = [rec["collective_us"], rec[unit], rec["efficiency_1dev"]]
+            if not all(np.isfinite(t) and t > 0 for t in times):
+                raise RuntimeError(f"[multidev] comm_volume {section}: "
+                                   f"times {times}")
+        cv_launches = cv["mppi_sample_sharded_k4096"]["launches"]
+        # timed solves x the solve's horizon (25)
+        want = ({cs.launch_key(4096, 2): 25 * MULTIDEV_REPS}
+                if self.dev.type == "cuda" else {})
+        if cv_launches != want:
+            raise RuntimeError(f"[multidev] comm_volume mppi launches "
+                               f"{cv_launches} != {want}")
+        self.attribute(cv_launches, rows=["flat distill expert"])
+        out = dict(
+            wall_s=wall,
+            mppi_solves_per_sec=mppi["solves_per_sec"],
+            mppi_best_cost=mppi["best_cost"],
+            env_ticks_per_sec=envs["env_ticks_per_sec"],
+            scaling_bench_env_steps_per_sec=sb["1"]["env_steps_per_sec"],
+            **{f"{k}_{u}": cv[k][u] for k in COMM_COUNTS_1
+               for u in ("collective_us", "solve_ms", "chunk_ms")
+               if u in cv[k]})
+        log(f"[multidev] the three scripts at world size 1 over {backend} "
+            f"({nvidia_smi_line()}), concurrently, {wall:.1f} s: "
+            + json.dumps(out))
+        return out
+
     # -- timing -----------------------------------------------------------
     def timing(self):
         from opendog_tpu_torch.utils.profiling import (CHIP_PEAKS, event_ms,
@@ -3555,6 +3712,11 @@ def sharded_phases(smoke):
             "sharded-2": smoke.sharded_two()}
 
 
+def multidev_phases(smoke):
+    """The multi-device scripts' phase (scripts/torch_*.py on parallel/)."""
+    return smoke.multidev()
+
+
 def perception_phases(smoke):
     """The perception phase (apps/slam.py .. mono_depth.py, ROADMAP M15b)."""
     return smoke.perception()
@@ -3571,15 +3733,17 @@ def scripts_phases(smoke):
 
 
 def main(argv=None):
-    """``--only ppo`` (``bridge``, ``sharded``, ``perception``, ``apps``,
-    ``scripts``) runs the device phase and the PPO phases (the bridge
-    phases, the multi-device phases, the perception phase, the apps phase,
-    the scripts' phase) alone: a development aid, with no kernel checked
-    and no "ok" line."""
+    """``--only ppo`` (``bridge``, ``sharded``, ``multidev``,
+    ``perception``, ``apps``, ``scripts``) runs the device phase and the PPO
+    phases (the bridge phases, the multi-device phases, the multi-device
+    scripts' phase, the perception phase, the apps phase, the scripts'
+    phase) alone: a development aid, with no kernel checked and no "ok"
+    line."""
     import argparse
     p = argparse.ArgumentParser()
     p.add_argument("--only", choices=["ppo", "bridge", "sharded",
-                                      "perception", "apps", "scripts"],
+                                      "multidev", "perception", "apps",
+                                      "scripts"],
                    default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
@@ -3602,7 +3766,7 @@ def main(argv=None):
     if args.only is not None:
         smoke = Smoke(torch, dev)
         res = dict(ppo=ppo_phases, bridge=bridge_phases,
-                   sharded=sharded_phases,
+                   sharded=sharded_phases, multidev=multidev_phases,
                    perception=perception_phases,
                    apps=apps_phases,
                    scripts=scripts_phases)[args.only](smoke)
@@ -3658,6 +3822,8 @@ def main(argv=None):
     mark("distill phases, student")
     sharded = sharded_phases(smoke)
     mark("sharded-1, sharded-2")
+    multidev = smoke.multidev()
+    mark("multidev")
     bridge_out = bridge_phases(smoke)
     mark("robot bridge phases")
     ppo = ppo_phases(smoke)
@@ -3696,6 +3862,7 @@ def main(argv=None):
          for run, rec in students.items()}))
     log("[summary] robot bridge: " + json.dumps(bridge_out))
     log("[summary] multi-device: " + json.dumps(sharded))
+    log("[summary] multi-device scripts: " + json.dumps(multidev))
     log("[summary] ppo: " + json.dumps(ppo))
     log("[summary] perception: " + json.dumps(perception))
     log("[summary] apps: " + json.dumps(apps))

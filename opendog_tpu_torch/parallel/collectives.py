@@ -25,25 +25,59 @@ process, no ``torch.distributed``) runs no collective at all.
 On an NCCL group the ``all_reduce`` can be captured in a CUDA graph (the
 mesh warms its communicator up when it is made); on a gloo group it
 cannot, and :func:`require_capturable` says so.
+
+:data:`TRAFFIC` counts what the collectives hand to ``dist.all_reduce``.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.distributed as dist
 
+# The all_reduces of the collectives, keyed by (collective, dtype, numel of
+# the buffer reduced) -> calls: psum, pmin and all_gather reduce their (n,
+# ...) slot buffer (n x.nbytes), pmean ``x`` itself (x.nbytes).  A call
+# adds one where it hands a buffer to ``dist.all_reduce`` and nowhere else,
+# so a mesh without a process group counts nothing.  Python runs only in
+# an eager call and while a CUDA graph captures one, never in a replay: the
+# counter counts an eager or a capturing pass.  Counting adds no
+# collective and reads nothing from the device.  Read and reset by
+# whoever needs the calls and bytes of a run (:func:`traffic`).
+TRAFFIC: collections.Counter = collections.Counter()
 
-def _slots(x: torch.Tensor, mesh) -> torch.Tensor:
+
+def _all_reduce(what: str, buf: torch.Tensor, mesh) -> None:
+    """``all_reduce(SUM)`` of ``buf`` over the mesh's group, counted."""
+    TRAFFIC[(what, buf.dtype, buf.numel())] += 1
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+
+
+def traffic(counts=None) -> dict:
+    """``{collective: {"calls": c, "bytes": b}}`` of a :data:`TRAFFIC`
+    count (the counter itself if None), in the collectives' order."""
+    counts = TRAFFIC if counts is None else counts
+    out = {}
+    for (what, dtype, numel), calls in counts.items():
+        rec = out.setdefault(what, {"calls": 0, "bytes": 0})
+        rec["calls"] += calls
+        rec["bytes"] += calls * numel * dtype.itemsize
+    return {k: out[k] for k in ("psum", "pmean", "pmin", "all_gather")
+            if k in out}
+
+
+def _slots(what: str, x: torch.Tensor, mesh) -> torch.Tensor:
     """(n, ...) with every rank's ``x`` in its slot, on every rank."""
     buf = x.new_zeros((mesh.size,) + tuple(x.shape))
     buf[mesh.index] = x
     if mesh.group is not None:
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        _all_reduce(what, buf, mesh)
     return buf
 
 
 def psum(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``x`` over the mesh's ranks, added in rank order."""
-    buf = _slots(x, mesh)
+    buf = _slots("psum", x, mesh)
     out = buf[0]
     for i in range(1, mesh.size):
         out = out + buf[i]
@@ -56,19 +90,19 @@ def pmean(x: torch.Tensor, mesh) -> torch.Tensor:
     backend's order of addition."""
     out = x.clone()
     if mesh.group is not None:
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        _all_reduce("pmean", out, mesh)
     return out / mesh.size
 
 
 def pmin(x: torch.Tensor, mesh) -> torch.Tensor:
     """The elementwise minimum of ``x`` over the mesh's ranks."""
-    return torch.amin(_slots(x, mesh), dim=0)
+    return torch.amin(_slots("pmin", x, mesh), dim=0)
 
 
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's ``x`` concatenated along axis 0 in rank order (``tiled``
     ``jax.lax.all_gather``): (n * x.shape[0], ...)."""
-    return _slots(x, mesh).reshape((mesh.size * x.shape[0],)
+    return _slots("all_gather", x, mesh).reshape((mesh.size * x.shape[0],)
                                    + tuple(x.shape[1:]))
 
 

@@ -18,6 +18,16 @@ of qpos between the two:
            wrote) with its eval payloads;
   trot     the same for the Go1 trot distillation without a payload (the
            flat kernel, K1) and ``--trot_student``.
+  turn     scripts/torch_turn_mpc.py's ``run`` at its defaults (K=256,
+           H=25, K1 for the rollouts and the K=1 plant) for 4 ticks, on the
+           normals of seeds 0, 1 and 2; then the card alone at the script's
+           250 ticks over seeds 0-4 (generators on the card): the final yaw
+           of each, the spread that rounding alone gives;
+  lag1, lag5  scripts/torch_lag_sweep.py's ``run`` at lag 1 (4 ticks) and
+           lag 5 (6 ticks: the first plan reaches the plant at tick 6), the
+           same three seeds, qpos and each tick's mean cost; then the card
+           alone at the script's 500 ticks over seeds 0-5: distance and
+           falls.
 
 On the CPU the kernel engine runs the kernel's plain version, which the CPU
 tests hold to the JAX package.  A fault of the card's path shows as a gap
@@ -25,7 +35,8 @@ at the first tick; float32 rounding starts near 1e-7 and grows where the
 task amplifies it.  Run from the repository root on a card (the CPU's side
 takes most of the time: about 5 s a jump tick, 14 s a payload tick):
 
-    python3 scripts/torch_card_cpu_ticks.py [--arms jump landing payload trot]
+    python3 scripts/torch_card_cpu_ticks.py [--arms jump landing payload trot
+                                             turn lag1 lag5]
 
 Prints one JSON line per arm (each pair of values: the card's, then the
 CPU's) and writes them, with the card's name and power limit, to
@@ -47,6 +58,12 @@ PAYLOAD_MAX = {"payload": 1.0, "trot": 0.0}  # kg, the records' --payload_max
 S = 8               # the distillation script's scenarios
 JUMP_TICKS = 12     # past the tick where the card and the CPU part
 DISTILL_TICKS = 5   # collect and eval ticks: ~14 s each on the CPU
+SEEDS = (0, 1, 2)   # the turn and lag arms' normals, card against CPU
+TURN_TICKS = 4      # ~11 s a tick on the CPU
+LAG_TICKS = {1: 4, 5: 6}
+TURN_OUTCOME_SEEDS = 5   # the card alone at the scripts' lengths
+LAG_OUTCOME_SEEDS = 6
+LAG_OUTCOME_TICKS = 500  # torch_lag_sweep.py's --ticks
 
 
 def parting(pair, **extra):
@@ -90,6 +107,63 @@ def landing_arm(devices):
         qps.append(qpos.cpu().numpy())
         finals.append(plant.qpos[:3].cpu().tolist())
     return parting(qps, final_qpos3=finals)
+
+
+def mpc_normals(ticks, cfg, nu, seed):
+    import torch
+    return torch.randn((ticks, cfg["num_samples"], cfg["horizon"], nu),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def turn_arm(devices):
+    import torch
+    import torch_turn_mpc as turn
+    from opendog_tpu_torch.assets import load_go1
+    cfg, card = turn.CONFIG, devices[0]
+    seeds = []
+    for seed in SEEDS:
+        normals = mpc_normals(TURN_TICKS, cfg, 12, seed)
+        qps = [turn.run(load_go1("flat", device=dev), TURN_TICKS, cfg,
+                        normals=normals.to(dev)).cpu().numpy()
+               for dev in devices]
+        seeds.append(parting(qps, normals_seed=seed))
+    outcomes = []
+    for seed in range(TURN_OUTCOME_SEEDS):
+        q = turn.run(load_go1("flat", device=card), turn.TICKS, cfg,
+                     torch.Generator(device=card).manual_seed(seed))
+        rec = turn.summarize(q.cpu().numpy(), turn.TICKS)
+        outcomes.append(dict(seed=seed, **{k: rec[k] for k in (
+            "final_yaw_deg", "final_xy", "upright")}))
+    return dict(seeds=seeds, card_outcomes=outcomes)
+
+
+def lag_arm(devices, lag):
+    import torch_lag_sweep as sweep
+    from opendog_tpu_torch.assets import load_go1
+    cfg, card, ticks = sweep.CONFIG, devices[0], LAG_TICKS[lag]
+    seeds = []
+    for seed in SEEDS:
+        normals = mpc_normals(ticks, cfg, 12, seed)
+        trs = [sweep.run(load_go1("flat", device=dev), cfg, lag, False,
+                         ticks, seed, normals=normals.to(dev))[0]
+               for dev in devices]
+        rec = parting([t["qpos"] for t in trs], normals_seed=seed)
+        cost = [np.asarray(t["mean_cost"], np.float64) for t in trs]
+        rec["mean_cost_rel_diff_per_tick"] = [
+            float(v) for v in np.abs(cost[0] - cost[1]) / np.abs(cost[1])]
+        seeds.append(rec)
+    model = load_go1("flat", device=card)
+    built, trajs = None, []
+    for seed in range(LAG_OUTCOME_SEEDS):
+        tr, built = sweep.run(model, cfg, lag, False, LAG_OUTCOME_TICKS,
+                              seed, built=built)
+        trajs.append(tr)
+    rec = sweep.lag_record(lag, LAG_OUTCOME_TICKS, trajs, None,
+                           sweep.lag_params().desired_vel_xy[0])
+    rec["falls_by_seed"] = [bool((t["qpos"][:, 2] < 0.12).any()
+                                 or (t["qpos"][:, 2] > 0.5).any())
+                            for t in trajs]
+    return dict(seeds=seeds, card_outcomes=rec)
 
 
 def on(x, dev):
@@ -149,7 +223,8 @@ def distill_arm(devices, student, payload_max, collect_ticks, eval_ticks,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arms", nargs="*",
-                    default=["jump", "landing", "payload", "trot"])
+                    default=["jump", "landing", "payload", "trot", "turn",
+                             "lag1", "lag5"])
     ap.add_argument("--payload_student",
                     default="runs/torch_distill_go1_payload/student.pt")
     ap.add_argument("--trot_student",
@@ -168,6 +243,10 @@ def main(argv=None):
             rec = jump_arm(devices, JUMP_TICKS)
         elif arm == "landing":
             rec = landing_arm(devices)
+        elif arm == "turn":
+            rec = turn_arm(devices)
+        elif arm in ("lag1", "lag5"):
+            rec = lag_arm(devices, int(arm[3:]))
         elif arm in PAYLOAD_MAX:
             rec = distill_arm(devices, getattr(args, f"{arm}_student"),
                               PAYLOAD_MAX[arm], DISTILL_TICKS,

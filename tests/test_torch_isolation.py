@@ -77,6 +77,9 @@ def test_port_sources_name_no_jax_or_jax_package():
         for name in ("offdist", "crossfam"):
             assert os.path.join(REPO, "scripts",
                                 f"torch_{kind}_{name}_eval.py") in sources
+    for name in ("multiprocess_scaling", "scaling_bench", "comm_volume",
+                 "multidev_common"):
+        assert os.path.join(REPO, "scripts", f"torch_{name}.py") in sources
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack)\b"
         r"|\bopendog_tpu\.|^\s*(import|from)\s+opendog_tpu\b(?!_torch)",
@@ -103,3 +106,14 @@ def test_port_has_a_module_for_every_module_of_the_jax_package():
     missing = modules(jax_pkg) - modules(PKG)
     assert missing == {os.path.join("ops", "pallas_step.py")}, missing
     assert os.path.isfile(os.path.join(PKG, "ops", "cuda_step.py"))
+
+
+def test_every_jax_script_has_a_torch_script():
+    """Every script of the JAX package (scripts/*.py without the torch_
+    prefix) has its counterpart scripts/torch_<name>.py, but
+    bench_suite.py, which goes with the benchmark (ROADMAP M7)."""
+    scripts = os.path.join(REPO, "scripts")
+    names = {f for f in os.listdir(scripts) if f.endswith(".py")}
+    missing = {f for f in names if not f.startswith("torch_")
+               and f"torch_{f}" not in names}
+    assert missing == {"bench_suite.py"}, missing
