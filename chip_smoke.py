@@ -27,7 +27,11 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              2) and the multi-process MPPI's OpenDOG K=64 x 2 per rank; flat
              and payload at the distiller's shapes (Go1
              expert K=4096 x 2, plant K=8 x 10; OpenDOG bench 5 expert
-             K=512 x 2); and, check only, all six at a ragged K=257 x 2 and
+             K=512 x 2); flat and plane_payload at the benchmark suite's
+             batches (scripts/torch_bench_suite.py: config 4b, OpenDOG
+             K=4096 x 10 of 2 ms from config 4's start; config 4d,
+             K=32,768 x 10 on its domain-randomised batch, the 32-sphere
+             build); and, check only, all six at a ragged K=257 x 2 and
              flat at bench 5's OpenDOG plant K=8 x 10;
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
@@ -104,7 +108,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              z above 0.12 at every tick, last cycle's mean in (0.18, 0.4))
              and locomotes (more than 0.1 m forward); prints bench 3b's
              fields;
-  realtime - bench.py:104-156 on the port: 50 graph ticks with a blocking
+  realtime - bench.py:104-156 on the port, through bench_torch.py's loop
+             functions: 50 graph ticks with a blocking
              copy of the control (the blocking reference), lag = min(5,
              max(1, ceil(median / 20 ms) + 1)), then RealtimeController in
              benchmark mode primed lag + 3 ticks and paced at 20 ms for 100
@@ -297,6 +302,17 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              plant at K=1: finite, upright, 501 launches; its record beside
              the JAX record runs/distill_cmd/soak.json, mean_vx and yaw_end
              each within 0.01 of it);
+  bench-suite - scripts/torch_bench_suite.py's configs that no other
+             phase runs, called as functions at full width, cut in
+             repetitions only: 1 (OpenDOG's 50-substep op-graph hold, one
+             CUDA graph, 5 timed calls; the suite: 40), 2b (Go1 trot MPPI
+             at K=4096, 5 warm-up and 5 timed graph ticks; 100 each), 4 (the
+             op-graph step over B=4096 OpenDOG envs, 2 timed replays; 20),
+             4b (K1 at 4096 x 10 from where 4 ends) and 4d (K2+K3 at
+             32,768 x 10), 20 timed launches each (uncut); each config's
+             launches counted exactly; gates: healthy (1, 2b), finite (4,
+             4b, 4d); prints each record, config 4's capture seconds and
+             peak memory;
   profile  - torch.profiler over 3 ticks (10 before the multi-device
              phases) of the flat, terrain and
              exact-terrain loops, eager and graph;
@@ -355,6 +371,13 @@ ROLLOUT = dict(K=256, dt=0.01, n=2)
 RAGGED = dict(K=257, dt=0.01, n=2)  # one rollout past the MPPI paths' K
 PLANT = dict(K=1, dt=0.002, n=10)
 BATCH = dict(K=4096, dt=0.002, n=10)
+# [bench-suite]: scripts/torch_bench_suite.py's configs 1, 2b, 4, 4b and 4d
+# at full width (B and K as the suite's), cut in repetitions only
+BENCH_4D = dict(K=32768, dt=0.002, n=10)   # K2+K3, the 32-sphere build
+SUITE_HOLD_REPS = 5        # config 1's timed 50-substep calls (the suite: 40)
+SUITE_TICKS = 5            # config 2b's warm-up and timed ticks (100 each)
+SUITE_BATCH_REPS = 2       # config 4's timed op-graph steps (20)
+SUITE_FUSED_REPS = 20      # 4b's and 4d's timed launches (20: uncut)
 # [ilqr] and [ilqr-trot] (bench 3 and 3b, scripts/bench_suite.py:305-394):
 # full width, cut in cycles only
 ILQR_CYCLES = 1        # timed graph cycles of bench 3 after the capture
@@ -578,25 +601,6 @@ def terrain_batch(model, terrain, K, seed=2):
     return qpos, qvel, ctrl, plane
 
 
-def batch_inputs(model, K):
-    """The domain-randomised batch of scripts/bench_suite.py (configs
-    4c/4d): OpenDOG home states with 0.02 noise at rest, home controls, one
-    plane per scenario (tilt ~N(0, 0.04), offset ~N(0, 0.03)) and a payload
-    U(0, 0.5) kg, from numpy seed 0: numpy (rows, K)."""
-    rng = np.random.default_rng(0)
-    qp = np.tile(model.numpy("key_qpos")[0][:, None], (1, K))
-    qp = (qp + 0.02 * rng.standard_normal(qp.shape)).astype(np.float32)
-    qv = np.zeros((model.nv, K), np.float32)
-    ct = np.tile(model.numpy("key_ctrl")[0][:, None], (1, K)).astype(
-        np.float32)
-    tilt = rng.normal(0, 0.04, (2, K))
-    nz = np.sqrt(1.0 - np.clip(tilt[0] ** 2 + tilt[1] ** 2, 0, 0.5))
-    plane = np.stack([tilt[0], tilt[1], nz,
-                      rng.normal(0, 0.03, K)]).astype(np.float32)
-    payload = rng.uniform(0.0, 0.5, (1, K)).astype(np.float32)
-    return qp, qv, ct, plane, payload
-
-
 class Smoke:
     """The phases of the run; ``records`` collects one entry per kernel and
     path shape for the JSON line."""
@@ -670,7 +674,8 @@ class Smoke:
             modes=(with_plane, with_payload), exclusive=exclusive)
 
     def check_all(self):
-        go1, dog, dog_t = self.go1, self.dog, self.dog_t
+        torch, go1, dog, dog_t = self.torch, self.go1, self.dog, self.dog_t
+        suite = script_module("torch_bench_suite")
         none = (None, None)
         self.check("flat rollout", go1, ROLLOUT, False, False,
                    random_batch(go1, ROLLOUT["K"]) + none)
@@ -687,7 +692,7 @@ class Smoke:
         self.check("pergeom plant", dog_t, PLANT, "per_geom", False,
                    terrain_batch(dog_t, self.terrain, PLANT["K"]) + (None,))
         self.check("plane_payload batch", dog, BATCH, True, True,
-                   batch_inputs(dog, BATCH["K"]))
+                   suite.batch_inputs(dog, BATCH["K"]))
         self.check("pergeom_payload rollout", dog_t, ROLLOUT, "per_geom",
                    True, terrain_batch(dog_t, self.terrain, K)
                    + random_modes(dog_t, K, False, True)[1:])
@@ -724,6 +729,13 @@ class Smoke:
                    False, random_batch(dog, MULTIDEV_ROLLOUT["K"],
                                        on_ground=True) + none,
                    exclusive=True)
+        # [bench-suite]: configs 4b (K1 on config 4's start, OpenDOG) and
+        # 4d (the 32-sphere K2+K3 build at 32,768 scenarios)
+        start = suite.batch_start(dog, suite.batch_draws(dog))
+        self.check("flat bench4b", dog, BATCH, False, False,
+                   tuple(x.T.cpu().numpy() for x in start) + none)
+        self.check("plane_payload bench4d", dog, BENCH_4D, True, True,
+                   suite.batch_inputs(dog, BENCH_4D["K"]))
         # the launch counter keys by shape, not model: bench 5's OpenDOG
         # plant counts under the Go1 plant's row
         self.check("flat bench5 plant", dog, DISTILL_PLANT, False, False,
@@ -741,7 +753,7 @@ class Smoke:
                    terrain_batch(dog_t, self.terrain, Kr) + (None,),
                    keep=False)
         self.check("plane_payload ragged", dog, RAGGED, True, True,
-                   batch_inputs(dog, Kr), keep=False)
+                   suite.batch_inputs(dog, Kr), keep=False)
         self.check("pergeom_payload ragged", dog_t, RAGGED, "per_geom", True,
                    terrain_batch(dog_t, self.terrain, Kr)
                    + random_modes(dog_t, Kr, False, True)[1:], keep=False)
@@ -1470,65 +1482,37 @@ class Smoke:
                         cfg, PERGEOM_PAYLOAD_SOLVES, want)
 
     def realtime(self, flat):
-        """bench.py:104-156 on the port: the blocking reference (the graphed
-        tick plus a blocking copy of its control), the pipeline depth from
-        its median, then RealtimeController in benchmark mode paced at
-        50 Hz; the host-blocking time of each tick."""
+        """bench.py:104-156 on the port, through bench_torch.py's loop: the
+        blocking reference (the graphed tick plus a blocking copy of its
+        control), the pipeline depth from its median, then
+        RealtimeController in benchmark mode paced at 50 Hz; the
+        host-blocking time of each tick."""
+        import bench_torch
         torch, dev, cs = self.torch, self.dev, self.cs
         from opendog_tpu_torch.physics import make_state
         from opendog_tpu_torch.solvers import RealtimeController
         model, cfg, gtick, carry = (flat[k] for k in ("model", "cfg", "gtick",
                                                       "carry"))
-        lat_sync = np.zeros(SYNC_TICKS)
-        for i in range(SYNC_TICKS):
-            t0 = time.perf_counter()
-            carry, out = gtick(carry)
-            out["ctrl"].cpu()
-            lat_sync[i] = time.perf_counter() - t0
+        _, lat_sync = bench_torch.blocking_reference(gtick, carry, SYNC_TICKS)
         sync_p99 = float(np.percentile(lat_sync, 99) * 1e3)
         sync_median = float(np.median(lat_sync) * 1e3)
-        lag = int(min(5, max(1, np.ceil(sync_median / (TICK_S * 1e3)) + 1)))
+        lag = bench_torch.lag_for(sync_median)
         log(f"[realtime] blocking reference over {SYNC_TICKS} graph ticks: "
             f"median {sync_median:.3f} ms, p99 {sync_p99:.3f} ms -> lag {lag}")
         rtc = RealtimeController(model, flat["cost"], cfg, lag=lag,
                                  plant_substeps=10, device=dev,
                                  generator=torch.Generator(
                                      device=dev).manual_seed(0))
-        t0 = time.perf_counter()
-        rtc.start(make_state(model, "home"))
-        torch.cuda.synchronize()
-        log(f"[realtime] start() captured the tick in "
-            f"{time.perf_counter() - t0:.3f} s")
-        rtc.tick()
-        for _ in range(lag + 3):  # prime the pipeline at pace
-            time.sleep(TICK_S)
-            rtc.tick()
-
-        def run():
-            lat = np.zeros(RT_TICKS)
-            ctrls, overruns = [], 0
-            next_t = time.perf_counter()
-            for i in range(RT_TICKS):
-                next_t += TICK_S
-                t0 = time.perf_counter()
-                ctrl = rtc.tick()
-                lat[i] = time.perf_counter() - t0
-                ctrls.append(ctrl)
-                rest = next_t - time.perf_counter()
-                if rest > 0:
-                    time.sleep(rest)
-                else:
-                    overruns += 1
-                    next_t = time.perf_counter()
-            return lat, np.array(ctrls), overruns
-
+        start_s = bench_torch.prime(rtc, make_state(model, "home"), lag)
+        log(f"[realtime] start() captured the tick in {start_s:.3f} s")
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"]):
                 cfg.horizon * RT_TICKS,
                 cs.launch_key(PLANT["K"], PLANT["n"]): RT_TICKS}
-        lat, ctrls, overruns = self.counted("realtime", run, want)
+        lat, ctrls, overruns = self.counted(
+            "realtime", lambda: bench_torch.paced_loop(rtc, RT_TICKS), want)
         rtc.drain()
         qpos = rtc.plant.qpos.cpu().numpy()
-        fields = dict(loop_fields(lat, overruns, lag),
+        fields = dict(bench_torch.loop_fields(lat, overruns, lag),
                       host_loop_sync_p99_ms=sync_p99,
                       host_loop_sync_median_ms=sync_median)
         self.check_loop("realtime", model, ctrls, qpos, fields)
@@ -1565,6 +1549,7 @@ class Smoke:
         plant step (K1, K=1 x10) on the card, whose state is read to the
         host before each tick and which applies each returned control.
         Times what bridge_tick blocks its caller, as [realtime] does."""
+        import bench_torch
         torch, dev, cs = self.torch, self.dev, self.cs
         from opendog_tpu_torch.physics import make_state
         from opendog_tpu_torch.solvers import RealtimeController
@@ -1619,7 +1604,7 @@ class Smoke:
                 cs.launch_key(PLANT["K"], PLANT["n"]): (lag + 1) * RT_TICKS}
         lat, ctrls, overruns = self.counted("bridge", run, want)
         rtc.drain()
-        fields = loop_fields(lat, overruns, lag)
+        fields = bench_torch.loop_fields(lat, overruns, lag)
         self.check_loop("bridge", model, ctrls, qpos[:, 0].cpu().numpy(),
                         fields)
         return fields
@@ -1630,8 +1615,9 @@ class Smoke:
         step = cs.build_cuda_substep(model, BATCH["dt"], BATCH["n"],
                                      device=dev, with_plane=True,
                                      with_payload=True)
-        qp, qv, ct, plane, payload = (torch.from_numpy(a).to(dev)
-                                      for a in batch_inputs(model, K))
+        qp, qv, ct, plane, payload = (
+            torch.from_numpy(a).to(dev) for a in script_module(
+                "torch_bench_suite").batch_inputs(model, K))
 
         def run():
             nonlocal qp, qv
@@ -2054,6 +2040,55 @@ class Smoke:
                 raise RuntimeError(f"[scripts] soak: {key} {seg[key]} vs "
                                    f"the JAX record's {jax_seg[key]}")
         out["soak"] = dict(seg, wall_s=wall)
+        return out
+
+    def bench_suite(self):
+        """[bench-suite]: scripts/torch_bench_suite.py's configs that no
+        other phase runs, at full width, cut in repetitions only: 1 (the
+        50-substep op-graph hold replayed from one CUDA graph,
+        SUITE_HOLD_REPS timed calls; the suite: 40), 2b (Go1 trot MPPI at
+        K=4096, SUITE_TICKS warm-up and timed graph ticks; 100 each), 4
+        (the op-graph step over B=4096 OpenDOG envs, SUITE_BATCH_REPS timed
+        replays; 20), 4b (K1 at 4096 x 10 from where 4 ends) and 4d (K2+K3
+        at 32,768 x 10), 20 timed launches each as in the suite.  Each
+        config's launches are counted; its kernels are held to their plain
+        versions by the check rows "flat bench4b" and "plane_payload
+        bench4d" (and 2b's by "flat distill expert" and "flat plant")."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        suite = script_module("torch_bench_suite")
+        out = {}
+
+        def run(key, fn, want, gate):
+            t0 = time.perf_counter()
+            rec = self.counted(f"bench-suite {key}", fn, want)
+            recs = rec if isinstance(rec, tuple) else (rec,)
+            log(f"[bench-suite] {key} in {time.perf_counter() - t0:.3f} s: "
+                + json.dumps(recs[0]))
+            if not recs[0][gate]:
+                raise RuntimeError(f"[bench-suite] {key}: {gate} is false")
+            out[key] = recs[0]
+            return rec
+
+        run("1", lambda: suite.config_1(dev, SUITE_HOLD_REPS), {}, "healthy")
+        ticks = 2 * SUITE_TICKS + 1  # and the capture's eager warm-up tick
+        run("2b", lambda: suite.config_2b(dev, SUITE_TICKS, kernels=False),
+            {cs.launch_key(4096, ROLLOUT["n"]): 25 * ticks,
+             cs.launch_key(PLANT["K"], PLANT["n"]): ticks}, "healthy")
+        _, batch = run("4", lambda: suite.config_4(dev, SUITE_BATCH_REPS),
+                       {}, "all_finite")
+        launches = SUITE_FUSED_REPS + 1  # and the warm-up launch
+        run("4b", lambda: suite.config_4b(dev, batch, SUITE_FUSED_REPS,
+                                          kernels=False),
+            {cs.launch_key(BATCH["K"], BATCH["n"]): launches},
+            "all_finite")
+        run("4d", lambda: suite.config_4d(dev, SUITE_FUSED_REPS,
+                                          kernels=False),
+            {cs.launch_key(BENCH_4D["K"], BENCH_4D["n"], True, True):
+             launches}, "all_finite")
+        log(f"[bench-suite] config 4's peak memory "
+            f"{out['4'].get('peak_memory_gib', 0.0):.2f} GiB, capture "
+            f"{out['4']['capture_s']:.3f} s; config 1's capture "
+            f"{out['1']['capture_s']:.3f} s ({nvidia_smi_line()})")
         return out
 
     # -- the robot bridge over the wire (apps/mpc_bridge.py) -------------
@@ -3483,7 +3518,8 @@ class Smoke:
             bound = substep_bound(model, shape["dt"], n, rec["modes"], args)
             bound_ms, bound_by, ops, nbytes = bound
             design = self.cs.KERNEL_DESIGNS[rec["name"]]
-            log(f"[timing] {label} ({rec['name']}, {design} design) K={K} "
+            entry = rec["kern"].entry  # the size class's, where it has one
+            log(f"[timing] {label} ({entry}, {design} design) K={K} "
                 f"x{n}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} "
                 f"ms by {bound_by} ({ops} ops at {peak_flops / 1e12:g} "
@@ -3492,7 +3528,7 @@ class Smoke:
                 f"launches on the paths {rec['launches']}; library call: "
                 f"none computes this function")
             kernels.append(dict(substep_row(
-                f"{rec['name']} ({label}: K={K}, {n} substeps)",
+                f"{entry} ({label}: K={K}, {n} substeps)",
                 rec["launches"], rec["err"], ms, plain_ms, bound),
                 design=design))
         for label, rec in self.records.items():
@@ -3650,20 +3686,6 @@ def sharded_rank(rank, n, addr, tmp, device):
     os._exit(0)
 
 
-def loop_fields(lat, overruns, lag):
-    """bench.py's host-loop fields of a paced loop's blocking times [s]."""
-    p99 = float(np.percentile(lat, 99) * 1e3)
-    return {
-        "host_loop_p99_latency_ms": p99,
-        "host_loop_median_latency_ms": float(np.median(lat) * 1e3),
-        "host_loop_max_latency_ms": float(lat.max() * 1e3),
-        "host_loop_mean_latency_ms": float(lat.mean() * 1e3),
-        "host_loop_meets_50hz_budget": bool(p99 < TICK_S * 1e3),
-        "host_loop_control_delay_ticks": lag,
-        "host_loop_overruns": overruns,
-    }
-
-
 def occupancy(lib, cs, smoke):
     """Prints the launch shape of each entry point's kernel for the model
     of its paths (Go1 for the flat modes, OpenDOG for the plane modes), and
@@ -3732,18 +3754,23 @@ def scripts_phases(smoke):
     return smoke.scripts()
 
 
+def bench_suite_phases(smoke):
+    """The benchmark suite's phase (scripts/torch_bench_suite.py)."""
+    return smoke.bench_suite()
+
+
 def main(argv=None):
     """``--only ppo`` (``bridge``, ``sharded``, ``multidev``,
-    ``perception``, ``apps``, ``scripts``) runs the device phase and the PPO
-    phases (the bridge phases, the multi-device phases, the multi-device
-    scripts' phase, the perception phase, the apps phase, the scripts'
-    phase) alone: a development aid, with no kernel checked and no "ok"
-    line."""
+    ``perception``, ``apps``, ``scripts``, ``bench-suite``) runs the device
+    phase and the PPO phases (the bridge phases, the multi-device phases,
+    the multi-device scripts' phase, the perception phase, the apps phase,
+    the scripts' phase, the benchmark suite's phase) alone: a development
+    aid, with no kernel checked and no "ok" line."""
     import argparse
     p = argparse.ArgumentParser()
     p.add_argument("--only", choices=["ppo", "bridge", "sharded",
                                       "multidev", "perception", "apps",
-                                      "scripts"],
+                                      "scripts", "bench-suite"],
                    default=None)
     args = p.parse_args(argv)
     start = time.perf_counter()
@@ -3769,7 +3796,8 @@ def main(argv=None):
                    sharded=sharded_phases, multidev=multidev_phases,
                    perception=perception_phases,
                    apps=apps_phases,
-                   scripts=scripts_phases)[args.only](smoke)
+                   scripts=scripts_phases,
+                   **{"bench-suite": bench_suite_phases})[args.only](smoke)
         log(f"[summary] {args.only}: " + json.dumps(res))
         log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
         log(smi)
@@ -3834,6 +3862,8 @@ def main(argv=None):
     mark("apps")
     scripts = scripts_phases(smoke)
     mark("scripts")
+    bench = bench_suite_phases(smoke)
+    mark("bench-suite")
     for label, path in (("flat", flat), ("terrain", terr),
                         ("exact-terrain", exact)):
         smoke.profile(f"{label} eager", path["tick"], path["carry"])
@@ -3867,6 +3897,7 @@ def main(argv=None):
     log("[summary] perception: " + json.dumps(perception))
     log("[summary] apps: " + json.dumps(apps))
     log("[summary] scripts: " + json.dumps(scripts))
+    log("[summary] bench-suite: " + json.dumps(bench))
     log(f"[summary] wall time {time.perf_counter() - start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -134,37 +134,47 @@ SC_WARP_KERNEL_OF(substep_plane_payload_small, SC_PLANE_LANE, true,
 typedef void (*SubstepKernel)(SC_ARGS);
 
 // A kernel with its launch shape: W rollouts per block, dynamic shared
-// memory per block [B].
+// memory per block [B], and the name of its entry point.
 struct WarpKernel {
   SubstepKernel fn;
   int warps;
   size_t smem;
+  const char* name;
 };
 
 template <int PLANE, int NG, int W>
-static WarpKernel warp_kernel(SubstepKernel fn) {
-  return {fn, W, sc_warp_smem<PLANE, NG, W>()};
+static WarpKernel warp_kernel(SubstepKernel fn, const char* name) {
+  return {fn, W, sc_warp_smem<PLANE, NG, W>(), name};
 }
+// an entry point and its name
+#define SC_ENTRY(NAME) NAME, #NAME
 
 // The kernel of (plane_mode = SC_PLANE_*, with_payload) for a model with
 // `ngeom` collision spheres (a larger value picks the larger size class);
 // fn is null for an unknown mode.
 static WarpKernel pick_kernel(int plane_mode, int with_payload, int ngeom) {
+  if (plane_mode == SC_PLANE_FLAT && with_payload)
+    return warp_kernel<SC_PLANE_FLAT, SC_NG_MAX, SC_WARPS>(
+        SC_ENTRY(substep_payload));
   if (plane_mode == SC_PLANE_FLAT)
     return warp_kernel<SC_PLANE_FLAT, SC_NG_MAX, SC_WARPS>(
-        with_payload ? substep_payload : substep_flat);
+        SC_ENTRY(substep_flat));
   if (plane_mode == SC_PLANE_LANE && !with_payload)
-    return warp_kernel<SC_PLANE_LANE, SC_NG_MAX, SC_WARPS>(substep_plane);
+    return warp_kernel<SC_PLANE_LANE, SC_NG_MAX, SC_WARPS>(
+        SC_ENTRY(substep_plane));
   if (plane_mode == SC_PLANE_LANE && ngeom <= SC_NG_SMALL)
     return warp_kernel<SC_PLANE_LANE, SC_NG_SMALL, SC_WARPS_SMALL>(
-        substep_plane_payload_small);
+        SC_ENTRY(substep_plane_payload_small));
   if (plane_mode == SC_PLANE_LANE)
     return warp_kernel<SC_PLANE_LANE, SC_NG_MAX, SC_WARPS>(
-        substep_plane_payload);
+        SC_ENTRY(substep_plane_payload));
+  if (plane_mode == SC_PLANE_GEOM && with_payload)
+    return warp_kernel<SC_PLANE_GEOM, SC_NG_MAX, SC_WARPS>(
+        SC_ENTRY(substep_pergeom_payload));
   if (plane_mode == SC_PLANE_GEOM)
     return warp_kernel<SC_PLANE_GEOM, SC_NG_MAX, SC_WARPS>(
-        with_payload ? substep_pergeom_payload : substep_pergeom);
-  return {nullptr, 0, 0};
+        SC_ENTRY(substep_pergeom));
+  return {nullptr, 0, 0, nullptr};
 }
 
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.
@@ -186,6 +196,13 @@ extern "C" int substep_warps_per_block(int plane_mode, int with_payload,
                                        int ngeom) {
   const WarpKernel k = pick_kernel(plane_mode, with_payload, ngeom);
   return k.fn ? k.warps : -1;
+}
+// The name of that kernel's entry point (the plane + payload mode's
+// "substep_plane_payload_small" for a model within SC_NG_SMALL spheres);
+// null for an unknown mode.
+extern "C" const char* substep_entry(int plane_mode, int with_payload,
+                                     int ngeom) {
+  return pick_kernel(plane_mode, with_payload, ngeom).name;
 }
 extern "C" int substep_warp_smem_bytes(int plane_mode, int with_payload,
                                        int ngeom) {

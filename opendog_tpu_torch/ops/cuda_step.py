@@ -290,6 +290,8 @@ def load_library(path: str) -> ctypes.CDLL:
                lib.substep_warp_occupancy):
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
+    lib.substep_entry.argtypes = [ctypes.c_int] * 3
+    lib.substep_entry.restype = ctypes.c_char_p
     lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.substep_launch.restype = ctypes.c_int
@@ -340,8 +342,14 @@ class CudaSubstep:
         self.ngeom = model.ngeom
         self.plane_rows = scalar_core.plane_rows(model, with_plane)
         table = substep_table(model, dt)
+        # the entry point a launch runs: the mode's kernel, or the size
+        # class the launcher picks for this model (LAUNCHES keys by mode)
+        self.entry = self.name
         if self.device.type == "cuda":
             self._lib, _ = cuda_library()
+            self.entry = self._lib.substep_entry(
+                _PLANE_CODE[with_plane], int(self.with_payload),
+                self.ngeom).decode()
             raw = bytearray(memoryview(table).cast("B"))
             self._table = torch.frombuffer(raw, dtype=torch.uint8).to(
                 self.device)

@@ -126,7 +126,7 @@ def kernel_record(label, model, dt, n_substeps, qpos, qvel, ctrl,
     cuda_step.LAUNCHES.clear()
     cuda_step.LAUNCHES.update(before)
     return substep_row(
-        f"{kern.name} ({label}: K={qpos.shape[1]}, {n_substeps} substeps)",
+        f"{kern.entry} ({label}: K={qpos.shape[1]}, {n_substeps} substeps)",
         launches, err, ms, plain_ms,
         substep_bound(model, dt, n_substeps, modes, args))
 

@@ -128,6 +128,50 @@ def test_mode_kernel_matches_plain_on_card(cuda_device, robot, K, dt, n,
     assert torch.equal(kp, pp) and torch.equal(kv, pv)
 
 
+def _bench_suite():
+    """scripts/torch_bench_suite.py as a module (it imports no JAX)."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "torch_bench_suite", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "torch_bench_suite.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["4b", "4d"])
+def test_bench_suite_batch_kernels_match_plain_on_card(cuda_device, config):
+    """The benchmark suite's new kernel shapes on their own inputs, 10
+    substeps of 2 ms: K1 on OpenDOG at 4096 (config 4b, from config 4's
+    start) and K2+K3 at 32,768 scenarios (config 4d, the 32-sphere build
+    over 4096 blocks of 8, which the wrapper names) equal their plain
+    versions exactly."""
+    suite = _bench_suite()
+    m = load_opendog("flat", device=cuda_device)
+    if config == "4b":
+        args = tuple(cuda_step.rows_from_batch(x) for x in suite.batch_start(
+            m, suite.batch_draws(m)))
+        modes, entry = (False, False), "substep_flat"
+    else:
+        args = tuple(torch.from_numpy(a).to(cuda_device)
+                     for a in suite.batch_inputs(m, suite.BATCH_32K))
+        modes, entry = (True, True), "substep_plane_payload_small"
+    key = cuda_step.launch_key(args[0].shape[1], 10, *modes)
+    before = cuda_step.LAUNCHES[key]
+    kern = cuda_step.build_cuda_substep(
+        m, m.timestep, 10, device=cuda_device, with_plane=modes[0],
+        with_payload=modes[1])
+    assert kern.entry == entry
+    kp, kv = kern(*args)
+    pp, pv = cuda_step.build_plain_substep(m, m.timestep, 10, *modes)(*args)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES[key] == before + 1
+    assert torch.isfinite(kp).all() and torch.isfinite(kv).all()
+    assert torch.equal(kp, pp) and torch.equal(kv, pv)
+
+
 @pytest.mark.gpu
 def test_payload_kernel_at_zero_is_the_flat_kernel(cuda_device):
     """A zero payload leaves the trunk's mass and com as they are, so the

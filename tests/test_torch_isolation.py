@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: opendog_tpu_torch, chip_smoke.py and the
-port's scripts (scripts/torch_*.py) import neither JAX (nor flax / optax)
+"""The PyTorch port stands alone: opendog_tpu_torch, chip_smoke.py,
+bench_torch.py and the port's scripts (scripts/torch_*.py) import neither
+JAX (nor flax / optax)
 nor anything of the JAX package, nor msgpack (the port reads and writes it
 in plain Python: telemetry/wire.py)."""
 import os
@@ -16,7 +17,8 @@ PKG = os.path.join(REPO, "opendog_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "bench_torch.py")]
     scripts = os.path.join(REPO, "scripts")
     out += [os.path.join(scripts, f) for f in os.listdir(scripts)
             if f.startswith("torch_") and f.endswith(".py")]
@@ -34,6 +36,9 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import bench_torch
+import runpy
+runpy.run_path("scripts/torch_bench_suite.py", run_name="suite")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "msgpack", "opendog_tpu"))
@@ -78,8 +83,9 @@ def test_port_sources_name_no_jax_or_jax_package():
             assert os.path.join(REPO, "scripts",
                                 f"torch_{kind}_{name}_eval.py") in sources
     for name in ("multiprocess_scaling", "scaling_bench", "comm_volume",
-                 "multidev_common"):
+                 "multidev_common", "bench_suite"):
         assert os.path.join(REPO, "scripts", f"torch_{name}.py") in sources
+    assert os.path.join(REPO, "bench_torch.py") in sources
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack)\b"
         r"|\bopendog_tpu\.|^\s*(import|from)\s+opendog_tpu\b(?!_torch)",
@@ -110,10 +116,20 @@ def test_port_has_a_module_for_every_module_of_the_jax_package():
 
 def test_every_jax_script_has_a_torch_script():
     """Every script of the JAX package (scripts/*.py without the torch_
-    prefix) has its counterpart scripts/torch_<name>.py, but
-    bench_suite.py, which goes with the benchmark (ROADMAP M7)."""
+    prefix) has its counterpart scripts/torch_<name>.py."""
     scripts = os.path.join(REPO, "scripts")
     names = {f for f in os.listdir(scripts) if f.endswith(".py")}
     missing = {f for f in names if not f.startswith("torch_")
                and f"torch_{f}" not in names}
-    assert missing == {"bench_suite.py"}, missing
+    assert missing == set(), missing
+
+
+def test_bench_has_its_torch_counterpart():
+    """The JAX package's headline benchmark at the repository root,
+    bench.py, has its counterpart bench_torch.py there, with the
+    benchmark's entry point and loop."""
+    assert os.path.isfile(os.path.join(REPO, "bench.py"))
+    import bench_torch
+    for name in ("main", "run", "lag_for", "blocking_reference",
+                 "paced_loop", "loop_fields", "solve_throughput"):
+        assert callable(getattr(bench_torch, name)), name
