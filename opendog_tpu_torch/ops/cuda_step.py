@@ -30,6 +30,7 @@ import torch
 from ..device import resolve_device
 from ..physics import dynamics as dyn
 from ..physics.model import JNT_FREE, JNT_HINGE, JNT_NONE, Model
+from ..utils import profiling
 from . import build, scalar_core
 
 # The kernel of each mode (with_plane, with_payload), named as its entry
@@ -49,9 +50,10 @@ _PLANE_CODE = {False: 0, True: 1, "per_geom": 2}  # SC_PLANE_* of the header
 
 # Launches of the kernels, keyed by kernel and shape
 # ("substep_pergeom K=256 x2"): the wrapper adds one where it launches a
-# kernel and nowhere else.  Read and reset by whoever needs to show that a
-# run went through the kernels.
-LAUNCHES: collections.Counter = collections.Counter()
+# kernel and nowhere else; a program counter (``utils.profiling.counter``),
+# so a graph's replay counts as its eager call.  Read and reset by whoever
+# needs to show that a run went through the kernels.
+LAUNCHES: collections.Counter = profiling.counter()
 
 
 def kernel_name(with_plane=False, with_payload: bool = False) -> str:

@@ -35,22 +35,28 @@ import collections
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import counter, span
+
 # The all_reduces of the collectives, keyed by (collective, dtype, numel of
 # the buffer reduced) -> calls: psum, pmin and all_gather reduce their (n,
 # ...) slot buffer (n x.nbytes), pmean ``x`` itself (x.nbytes).  A call
 # adds one where it hands a buffer to ``dist.all_reduce`` and nowhere else,
-# so a mesh without a process group counts nothing.  Python runs only in
-# an eager call and while a CUDA graph captures one, never in a replay: the
-# counter counts an eager or a capturing pass.  Counting adds no
-# collective and reads nothing from the device.  Read and reset by
-# whoever needs the calls and bytes of a run (:func:`traffic`).
-TRAFFIC: collections.Counter = collections.Counter()
+# so a mesh without a process group counts nothing.  Python runs in an
+# eager call and while a CUDA graph captures one, never in a replay; as a
+# program counter (``utils.profiling.counter``) its capture's counts are
+# taken out and added back on every replay (``solvers.graph.GraphedTick``),
+# so an eager call and a replay each count once and a capture counts
+# nothing.  Counting adds no collective and reads nothing from the device.
+# Read and reset by whoever needs the calls and bytes of a run
+# (:func:`traffic`).
+TRAFFIC: collections.Counter = counter()
 
 
 def _all_reduce(what: str, buf: torch.Tensor, mesh) -> None:
     """``all_reduce(SUM)`` of ``buf`` over the mesh's group, counted."""
     TRAFFIC[(what, buf.dtype, buf.numel())] += 1
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    with span("collectives.all_reduce"):
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
 
 
 def traffic(counts=None) -> dict:

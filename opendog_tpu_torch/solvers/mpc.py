@@ -27,6 +27,7 @@ from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
 from ..parallel.collectives import require_capturable
 from ..physics import State, Terrain, dynamics, make_state
+from ..utils.profiling import span
 from . import ilqr as ilqr_mod, mppi
 from .graph import GraphedTick
 
@@ -155,12 +156,13 @@ def make_mpc(
                 solve_from = plant_step(solve_from, carry.ctrl_queue[i])
         ctrl, solver_state, stats = solve(solve_from, carry.solver,
                                           carry.generator, normals)
-        if ctrl_lag > 0:
-            applied = carry.ctrl_queue[0]
-            queue = torch.cat([carry.ctrl_queue[1:], ctrl[None]], dim=0)
-        else:
-            applied, queue = ctrl, carry.ctrl_queue
-        plant = plant_step(carry.plant, applied)
+        with span("mpc.plant"):
+            if ctrl_lag > 0:
+                applied = carry.ctrl_queue[0]
+                queue = torch.cat([carry.ctrl_queue[1:], ctrl[None]], dim=0)
+            else:
+                applied, queue = ctrl, carry.ctrl_queue
+            plant = plant_step(carry.plant, applied)
         out = dict(ctrl=applied, qpos=plant.qpos, qvel=plant.qvel, **stats)
         if ctrl_lag > 0 and lag_compensation:
             # the predicted application state; with a deterministic plant it

@@ -47,6 +47,7 @@ from ..device import resolve_device, use_full_fp32
 from ..ops.cuda_step import build_cuda_substep
 from ..parallel import collectives
 from ..physics import State, Terrain, dynamics
+from ..utils.profiling import span
 from .costs import ref_takes_cmd
 from .graph import GraphedTick
 
@@ -271,22 +272,28 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
     def core(qpos, qvel, time, nominal, normals, payload=None,
              command=None):
         S = qpos.shape[0]
-        candidates = sample_candidates(nominal, normals)
-        flat = candidates.reshape(S * K_local, H, nu)
-        costs = rollout_costs(
-            qpos, qvel, time, flat, payload,
-            None if command is None else lanes(command)).reshape(S, K_local)
-        if anchored:
-            costs = costs + anchor_w * torch.sum(torch.square(
-                candidates - ref_seq(time, command)[:, None]), dim=(2, 3))
-        # diverged rollouts must not poison the softmax: treat non-finite
-        # costs as very bad, not NaN
-        costs = torch.where(torch.isfinite(costs), costs,
-                            torch.full_like(costs, 1e9))
-        new_nominal, stats = weighted_update(candidates, costs)
-        ctrl = new_nominal[:, 0]
-        # receding horizon: shift, repeat last
-        shifted = torch.cat([new_nominal[:, 1:], new_nominal[:, -1:]], dim=1)
+        with span("mppi.sample"):
+            candidates = sample_candidates(nominal, normals)
+        with span("mppi.rollout"):
+            flat = candidates.reshape(S * K_local, H, nu)
+            costs = rollout_costs(
+                qpos, qvel, time, flat, payload,
+                None if command is None else lanes(command)).reshape(
+                    S, K_local)
+            if anchored:
+                costs = costs + anchor_w * torch.sum(torch.square(
+                    candidates - ref_seq(time, command)[:, None]),
+                    dim=(2, 3))
+            # diverged rollouts must not poison the softmax: treat
+            # non-finite costs as very bad, not NaN
+            costs = torch.where(torch.isfinite(costs), costs,
+                                torch.full_like(costs, 1e9))
+        with span("mppi.update"):
+            new_nominal, stats = weighted_update(candidates, costs)
+            ctrl = new_nominal[:, 0]
+            # receding horizon: shift, repeat last
+            shifted = torch.cat([new_nominal[:, 1:], new_nominal[:, -1:]],
+                                dim=1)
         return ctrl, shifted, stats
 
     return core, device

@@ -18,13 +18,20 @@ package's ``utils/profiling.py``, on PyTorch:
 * :func:`substep_bound` and :func:`substep_row` — a substep kernel's bound
   and its row of the ``kernels`` line that ``chip_smoke.py`` and the
   application scripts print.
+* :func:`span` and :data:`SPANS` — the program's own spans: host time of
+  each call on the profiler's clock and, inside a CUDA graph, device time
+  that every replay records (see "Spans" below).
+* :func:`counter` and :data:`COUNTERS` — the program's counters, which a
+  CUDA graph's replay adds to as its eager call would (see "Counters").
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import time
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -188,3 +195,152 @@ def substep_row(name: str, launches: int, max_abs_err: float, ms: float,
             "replaces": SUBSTEP_REPLACES, "launches": int(launches),
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+# -- Spans -------------------------------------------------------------------
+#
+# ``with span("mppi.rollout"): ...`` records the host's start and end of the
+# block with ``time.time_ns()``, the clock that ``torch.profiler`` stamps its
+# events with, so a span and a trace of the same process line up.  While a
+# profiler session is active the span also opens ``record_function(name)``,
+# so the range shows in the trace; while none is, it makes no dispatcher
+# call.  Inside a capture that :func:`capture_events` collects
+# (``solvers.graph.GraphedTick``'s), the span also records a pair of timing
+# events on the current stream: they become event-record nodes of the graph
+# and fire on every replay, which is how a stage's device time survives the
+# replay, where no Python runs between stages.  The graph's owner reads the
+# pairs after a replay into :data:`SPANS` (``device``).  With the spans off
+# (:func:`set_spans`) a span costs one flag check and records nothing, and a
+# graph captured then holds no event node.
+
+SPAN_RING = 8192   # records kept per name, the newest
+
+
+class SpanStore:
+    """The spans of a process, by name: ``host(name)`` -> [(start ns, end
+    ns)] of each call (eager, or the Python pass of a capture);
+    ``device(name)`` -> [(host start ns of the replay, device ms)], one row
+    per read replay of a graph that holds the span (the sum of its pairs
+    there) and, from ``GraphedTick``, ``graph.replay`` (the replay's device
+    span) and ``graph.period`` (from the previous replay's start on the
+    device to this one's).  Every graph of the process writes under these
+    names: a reader of one graph's rows replays that graph alone, as the
+    benchmark's ranks do.  Oldest first; :data:`SPAN_RING` rows per name
+    at most."""
+
+    def __init__(self):
+        self._host: Dict[str, collections.deque] = {}
+        self._device: Dict[str, collections.deque] = {}
+
+    @staticmethod
+    def _add(rings: Dict[str, collections.deque], name: str, row) -> None:
+        ring = rings.get(name)
+        if ring is None:
+            ring = rings[name] = collections.deque(maxlen=SPAN_RING)
+        ring.append(row)
+
+    def add_host(self, name: str, start_ns: int, end_ns: int) -> None:
+        self._add(self._host, name, (start_ns, end_ns))
+
+    def add_device(self, name: str, replay_ns: int, ms: float) -> None:
+        self._add(self._device, name, (replay_ns, ms))
+
+    def host(self, name: str) -> List[Tuple[int, int]]:
+        return list(self._host.get(name, ()))
+
+    def device(self, name: str) -> List[Tuple[int, float]]:
+        return list(self._device.get(name, ()))
+
+    def clear(self) -> None:
+        self._host.clear()
+        self._device.clear()
+
+
+SPANS = SpanStore()
+_on = True
+# (name, start event, end event) of the spans of the capture in progress,
+# or None (capture_events)
+_pairs: Optional[list] = None
+
+
+def set_spans(on: bool) -> bool:
+    """Turns the spans on or off (on by default); returns the old setting."""
+    global _on
+    old, _on = _on, bool(on)
+    return old
+
+
+def spans_on() -> bool:
+    return _on
+
+
+@contextlib.contextmanager
+def capture_events():
+    """Around a CUDA-graph capture: yields the list that the spans opened
+    inside it fill with ``(name, start event, end event)``, the timing
+    events they record into the graph."""
+    global _pairs
+    outer, _pairs = _pairs, []
+    try:
+        yield _pairs
+    finally:
+        _pairs = outer
+
+
+class _Span:
+    __slots__ = ("name", "start", "_range", "_event")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._event = self._range = None
+        # a capture in progress, on this thread's stream (not another's)
+        if _pairs is not None and torch.cuda.is_current_stream_capturing():
+            self._event = torch.cuda.Event(enable_timing=True, external=True)
+            self._event.record()
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self._event is not None:
+            stop = torch.cuda.Event(enable_timing=True, external=True)
+            stop.record()
+            _pairs.append((self.name, self._event, stop))
+        SPANS.add_host(self.name, self.start, end)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span(name):`` records the block as a span of ``name`` in
+    :data:`SPANS` (see "Spans" above); a no-op while the spans are off."""
+    return _Span(name) if _on else _OFF
+
+
+# -- Counters ----------------------------------------------------------------
+#
+# The program's counters that Python bumps as it issues work (the substep
+# kernels' ``ops.cuda_step.LAUNCHES``, the collectives'
+# ``parallel.collectives.TRAFFIC``), each made by :func:`counter`.  A CUDA
+# graph's capture issues nothing that runs, and a replay issues everything
+# the capture did without running Python, so ``solvers.graph.GraphedTick``
+# takes each counter's counts out of its capture and adds them back on every
+# replay.
+
+COUNTERS: List[collections.Counter] = []
+
+
+def counter() -> collections.Counter:
+    """A new program counter, kept in :data:`COUNTERS`."""
+    c = collections.Counter()
+    COUNTERS.append(c)
+    return c

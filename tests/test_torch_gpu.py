@@ -370,6 +370,197 @@ def test_graph_tick_outlives_the_eager_tick(cuda_device):
     del filler
 
 
+# libcuda's CUgraphNodeType
+NODE_KERNEL, NODE_EVENT_RECORD = 0, 7
+
+
+def _node_types(graph):
+    """{node type: count} of a captured ``torch.cuda.CUDAGraph`` (kept with
+    ``keep_graph=True``), from libcuda's ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType``."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphNodeGetType.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert lib.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    out = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(0)
+        assert lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0
+        out[kind.value] += 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["flat", "exact"])
+def test_spans_in_a_replayed_tick(cuda_device, path):
+    """The make_mpc tick captured with the spans on and off (Go1 flat; the
+    exact terrain plant): the same kernel nodes, two event-record nodes
+    more per stage span, the same bits on every replay; every stage reads a
+    positive device time on every read replay (the first and every
+    READ_EVERY-th), and the stage medians add up to the graph's device span
+    within 5%."""
+    from opendog_tpu_torch.physics import make_state
+    from opendog_tpu_torch.solvers import graph_tick, make_mpc
+    from opendog_tpu_torch.solvers.graph import READ_EVERY
+    from opendog_tpu_torch.utils import profiling
+    if path == "flat":
+        m, cost = _go1_trot(cuda_device)
+        cfg, extra = _bench_config(), {}
+    else:
+        m, terr, cost = _dog_terrain(cuda_device)
+        cfg, extra = _bench_config(0.08), dict(terrain=terr)
+    init, tick, _ = make_mpc(m, cost, cfg, plant_substeps=10,
+                             device=cuda_device, **extra)
+    carry0 = init(None, make_state(m, "home"))
+    normals = _normals(2 * READ_EVERY + 1, cfg, m.nu, cuda_device)
+    stages = {"mppi.sample", "mppi.rollout", "mppi.update", "mpc.plant"}
+    was = profiling.set_spans(False)
+    try:
+        g_off = graph_tick(tick, carry0, normals[0])
+        profiling.set_spans(True)
+        profiling.SPANS.clear()
+        g_on = graph_tick(tick, carry0, normals[0])
+        assert g_off.graph.pairs == ()
+        assert {name for name, _, _ in g_on.graph.pairs} == stages
+        assert len(g_on.graph.pairs) == len(stages)
+        on, off = (_node_types(g.graph.graph) for g in (g_on, g_off))
+        assert on[NODE_KERNEL] == off[NODE_KERNEL] > 0
+        assert on[NODE_EVENT_RECORD] - off[NODE_EVENT_RECORD] == 2 * len(
+            stages)
+        c_on = c_off = carry0
+        for n in normals:
+            profiling.set_spans(True)
+            c_on, o_on = g_on(c_on, n)
+            profiling.set_spans(False)
+            c_off, o_off = g_off(c_off, n)
+            for k in ("ctrl", "qpos", "qvel"):
+                assert torch.equal(o_on[k], o_off[k]), k
+            assert torch.equal(c_on.solver.nominal, c_off.solver.nominal)
+        g_on.graph.flush()
+    finally:
+        profiling.set_spans(was)
+    store = profiling.SPANS
+    med = {}
+    for name in stages | {"graph.replay"}:
+        ms = [v for _, v in store.device(name)]
+        assert len(ms) == 3 and min(ms) > 0, (name, ms)
+        med[name] = float(np.median(ms))
+    periods = [v for _, v in store.device("graph.period")]
+    assert len(periods) == 2 and min(periods) >= med["graph.replay"]
+    assert len(store.host("graph.replay")) == len(normals)
+    total = sum(med[name] for name in stages)
+    assert abs(total - med["graph.replay"]) <= 0.05 * med["graph.replay"], \
+        med
+
+
+@pytest.mark.gpu
+def test_a_replay_adds_every_counter_back(cuda_device):
+    """GraphedTick takes each program counter's counts out of its capture
+    and adds them back on every replay: a test counter made by
+    ``profiling.counter``, and ``collectives.TRAFFIC`` through a psum on a
+    one-rank NCCL group, whose all-reduce span reads a positive device
+    time on every read replay."""
+    import socket
+
+    import torch.distributed as dist
+
+    from opendog_tpu_torch.parallel import (collectives,
+                                            initialize_distributed,
+                                            sample_mesh)
+    from opendog_tpu_torch.solvers import graph as graph_mod
+    from opendog_tpu_torch.utils import profiling
+
+    test = profiling.counter()
+    try:
+        def fn(x):
+            test["calls"] += 1
+            test["elements"] += x.numel()
+            return x * 2
+
+        x = torch.ones(4, device=cuda_device)
+        g = graph_mod.GraphedTick(fn, (x,), cuda_device)
+        assert test == {"calls": 1, "elements": 4}     # the eager warm-up
+        assert g.count_of(test) == {"calls": 1, "elements": 4}
+        for _ in range(3):
+            g(x)
+        assert test == {"calls": 4, "elements": 16}
+    finally:
+        profiling.COUNTERS[:] = [c for c in profiling.COUNTERS
+                                 if c is not test]
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    was = profiling.set_spans(True)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = sample_mesh(1)
+        x = torch.arange(6.0, device=cuda_device)
+        collectives.TRAFFIC.clear()
+        g = graph_mod.GraphedTick(lambda v: collectives.psum(v, mesh), (x,),
+                                  cuda_device)
+        key = ("psum", torch.float32, 6)
+        assert dict(collectives.TRAFFIC) == {key: 1}
+        assert g.count_of(collectives.TRAFFIC) == {key: 1}
+        assert [name for name, _, _ in g.pairs] == ["collectives.all_reduce"]
+        profiling.SPANS.clear()
+        for _ in range(graph_mod.READ_EVERY + 1):
+            out = g(x)
+        g.flush()
+        assert torch.equal(out, x)
+        assert dict(collectives.TRAFFIC) == {key: graph_mod.READ_EVERY + 2}
+        ms = [v for _, v in profiling.SPANS.device("collectives.all_reduce")]
+        assert len(ms) == 2 and min(ms) > 0, ms
+    finally:
+        profiling.set_spans(was)
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_span_clock_is_the_profilers(cuda_device):
+    """A span's start (``time.time_ns()``) lies within 50 us of the
+    profiler's own record of the same range, once both are warm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from opendog_tpu_torch.utils import profiling
+    x = torch.ones(1 << 16, device=cuda_device)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    was = profiling.set_spans(True)
+    try:
+        with profile(activities=acts):
+            with profiling.span("clock.check"):
+                x.mul_(1.0001)
+            torch.cuda.synchronize()
+        profiling.SPANS.clear()
+        with profile(activities=acts) as prof:
+            for _ in range(20):
+                with profiling.span("clock.check"):
+                    x.mul_(1.0001)
+                torch.cuda.synchronize()
+    finally:
+        profiling.set_spans(was)
+    ranges = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.name() == "clock.check"
+              and "CUDA" not in str(ev.device_type())]
+    ours = profiling.SPANS.host("clock.check")
+    assert len(ranges) == len(ours) == 20
+    gaps_us = [abs(s - ev.start_ns()) / 1e3
+               for (s, _), ev in zip(ours, ranges)][5:]
+    assert max(gaps_us) < 50, gaps_us
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("path", ["flat", "per_geom"])
 def test_graph_payload_solve_equals_eager(cuda_device, path):
