@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
   build    - builds the substep kernels (csrc/, one nvcc call: the six
              entry points flat, payload, plane, pergeom, plane_payload and
              pergeom_payload, all one warp per rollout, and the batch's
-             plane_payload kernel for models of at most 32 spheres) for
+             plane_payload kernel for models of at most 32 spheres, and
+             the exact plant, exact_plant) for
              sm_90a and prints the ptxas report of each and, for each entry
              point at its paths' model, the rollouts and dynamic shared
              memory per block and the blocks and warps resident per SM;
@@ -31,8 +32,11 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              batches (scripts/torch_bench_suite.py: config 4b, OpenDOG
              K=4096 x 10 of 2 ms from config 4's start; config 4d,
              K=32,768 x 10 on its domain-randomised batch, the 32-sphere
-             build); and, check only, all six at a ragged K=257 x 2 and
-             flat at bench 5's OpenDOG plant K=8 x 10;
+             build); the exact plant (exact_plant: the heightfield and the
+             static box at every substep) at its K=1 x 10 on random OpenDOG
+             states on the terrain, over the box and past the grid's edge,
+             equal to its plain version; and, check only, all six at a
+             ragged K=257 x 2 and flat at bench 5's OpenDOG plant K=8 x 10;
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc: the tick captured in a CUDA graph (graph_tick) must
@@ -58,10 +62,12 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the same step on the CPU on the same inputs (1e-4 qpos, 1e-3
              qvel);
   exact-terrain - bench 2c: the terrain loop with one trunk plane for the
-             rollouts and the default exact plant (the op-graph step with
-             bilinear contact, 10 x 2 ms), eager and graph as in main, as
-             many ticks as terrain, the height bands of terrain, 25 plane launches and
-             no plant kernel launch per tick; then terrain's deviation
+             rollouts and the default exact plant (the exact plant kernel:
+             the contact of the op-graph step, bilinear heightfield and
+             static box, 10 x 2 ms), eager and graph as in main, as
+             many ticks as terrain, the height bands of terrain, 25 plane
+             launches and one exact plant launch (PLANT_LAUNCHES) per tick
+             of the graph; then terrain's deviation
              check: final_dev_vs_exact_plant_m, the distance between the
              trunk positions that the per-geom kernel-plant loop and this
              loop reach from the same start on the same normals in as many
@@ -601,6 +607,49 @@ def terrain_batch(model, terrain, K, seed=2):
     return qpos, qvel, ctrl, plane
 
 
+EXACT_PLANT_CASES = ("terrain", "box", "edge")
+
+
+def exact_plant_batch(model, terrain, K, case, seed=3):
+    """Inputs of the exact plant kernel on OpenDOG's terrain scene: numpy
+    (qpos, qvel, ctrl) (rows, K) and the heights (nrow, ncol).  ``case``
+    "terrain": random states on the ground of ``terrain`` (terrain_batch's);
+    "box": random states over the scene's static box on a flat grid, each
+    trunk lowered so that its lowest sphere sinks 0-4 cm into the box top,
+    with spheres inside the box and just outside it; "edge": random states
+    beyond the heightfield's clipped edge (0.05-0.6 m past +-sx or +-sy),
+    on the clipped ground."""
+    import torch
+    from opendog_tpu_torch.physics import dynamics
+    rng = np.random.default_rng(seed + 300)
+    heights = terrain.height.detach().cpu().numpy().astype(np.float32)
+    if case == "terrain":
+        qpos, qvel, ctrl, _ = terrain_batch(model, terrain, K, seed)
+        return qpos, qvel, ctrl, heights
+    qpos, qvel, ctrl = random_batch(model, K, seed, on_ground=True)
+    m = model.to("cpu")
+    if case == "box":
+        heights = np.zeros_like(heights)
+        pos, size = m.numpy("wbox_pos")[0], m.numpy("wbox_size")[0]
+        qpos[0] = pos[0] + rng.uniform(-0.5, 0.5, K) * size[0]
+        qpos[1] = pos[1] + rng.uniform(-0.5, 0.5, K) * size[1]
+        qpos[2] += pos[2] + size[2] - rng.uniform(0.0, 0.04, K)
+    elif case == "edge":
+        sx, sy = (float(v) for v in m.numpy("hfield_size")[:2])
+        past = rng.uniform(0.05, 0.6, (2, K)) * rng.choice([-1, 1], (2, K))
+        qpos[0] = np.sign(past[0]) * sx + past[0]
+        qpos[1] = rng.uniform(-sy, sy, K)
+        swap = rng.uniform(size=K) < 0.5  # past the y edge instead
+        qpos[1, swap] = np.sign(past[1, swap]) * sy + past[1, swap]
+        qpos[0, swap] = rng.uniform(-sx, sx, int(swap.sum()))
+        h, _ = dynamics._terrain_height_normal(
+            m, terrain.to("cpu"), torch.from_numpy(qpos[:2].T.copy()))
+        qpos[2] += h.numpy()
+    else:
+        raise ValueError(f"case must be one of {EXACT_PLANT_CASES}")
+    return qpos.astype(np.float32), qvel, ctrl, heights
+
+
 class Smoke:
     """The phases of the run; ``records`` collects one entry per kernel and
     path shape for the JSON line."""
@@ -757,6 +806,35 @@ class Smoke:
         self.check("pergeom_payload ragged", dog_t, RAGGED, "per_geom", True,
                    terrain_batch(dog_t, self.terrain, Kr)
                    + random_modes(dog_t, Kr, False, True)[1:], keep=False)
+        self.check_exact_plant()
+
+    def check_exact_plant(self):
+        """The exact plant kernel against its plain version at the MPC
+        plant's K=1 x 10, in each case of exact_plant_batch (check only:
+        its launches count in PLANT_LAUNCHES, which the exact-terrain loop
+        reads)."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.ops import scalar_core
+        K, n, dt = PLANT["K"], PLANT["n"], PLANT["dt"]
+        plain = cs.build_plain_substep(self.dog_t, dt, n, scalar_core.TERRAIN)
+        for case in EXACT_PLANT_CASES:
+            qp, qv, ct, heights = (
+                torch.from_numpy(a).to(dev) for a in
+                exact_plant_batch(self.dog_t, self.terrain, K, case))
+            kp, kv = cs.ExactPlant(self.dog_t, dt, n, heights, dev)(qp, qv,
+                                                                    ct)
+            pp, pv = plain(qp, qv, ct, heights)
+            torch.cuda.synchronize()
+            err = {"qpos": (kp - pp).abs().max().item(),
+                   "qvel": (kv - pv).abs().max().item()}
+            log(f"[check] exact plant {case} K={K} x{n} dt={dt}: max abs "
+                f"err qpos {err['qpos']:.3e} qvel {err['qvel']:.3e}")
+            for k in err:
+                if not err[k] <= CHECK_TOL[k]:
+                    raise RuntimeError(f"[check] exact plant {case}: kernel "
+                                       f"disagrees with its plain version "
+                                       f"on {k}: {err[k]}")
+        cs.PLANT_LAUNCHES.clear()
 
     # -- paths ------------------------------------------------------------
     def counted(self, label, run, want, rows=None):
@@ -919,7 +997,7 @@ class Smoke:
 
     def terrain_loop(self, label, plane_mode, ticks, terrain_plant="kernel"):
         """OpenDOG standing MPC on the generated terrain: the per-geom
-        kernel plant, or the exact plant (the op-graph step)."""
+        kernel plant, or the exact plant (the exact plant kernel)."""
         torch, dev, cs = self.torch, self.dev, self.cs
         from opendog_tpu_torch.physics import dynamics, make_state
         from opendog_tpu_torch.solvers import MPPIConfig, costs, make_mpc
@@ -957,10 +1035,17 @@ class Smoke:
         rollout_mode = "per_geom" if plane_mode == "per_geom" else True
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"], rollout_mode):
                 cfg.horizon * ticks}
-        if terrain_plant == "kernel":  # the exact plant launches no kernel
+        if terrain_plant == "kernel":  # the exact plant counts apart
             want[cs.launch_key(PLANT["K"], PLANT["n"], "per_geom")] = ticks
         res, gtick = self.tick_pair(label, tick, init, s0, cfg, model.nu,
                                     run, want)
+        plant = dict(gtick.graph.count_of(cs.PLANT_LAUNCHES))
+        want_plant = ({cs.plant_launch_key(PLANT["K"], PLANT["n"]): 1}
+                      if terrain_plant == "exact" else {})
+        log(f"[{label}] exact plant launches per replay: {plant}")
+        if plant != want_plant:
+            raise RuntimeError(f"[{label}] exact plant launches {plant} != "
+                               f"{want_plant}")
         for side, (wall, qs, _) in res.items():
             qpos = qs[:, :model.nq]
             ground, _ = dynamics._terrain_height_normal(model, terr,
@@ -3809,7 +3894,7 @@ def main(argv=None):
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "stack", "Compiling")):
             log(f"[build] {line.strip()}")
-    for name in cuda_step.KERNEL_NAMES.values():
+    for name in (*cuda_step.KERNEL_NAMES.values(), cuda_step.EXACT_PLANT):
         if f"'{name}'" not in built.log:
             raise RuntimeError(f"[build] no ptxas report of {name}")
     smoke = Smoke(torch, dev)

@@ -5,10 +5,13 @@
 // _arrow_solve_scalar, in each of its modes.  The substep is a template on
 // its ground, PLANE (SC_PLANE_FLAT: the plane z = 0; SC_PLANE_LANE: one
 // plane {n.x = d} per rollout; SC_PLANE_GEOM: one plane per collision geom
-// and rollout), and on PAYLOAD (a point mass at the trunk origin per
-// rollout).  The flat instantiation keeps the z = 0 contact arithmetic of
-// the flat kernel; the plane instantiations use the general-normal contact
-// and the (I - nn^T) friction form, as the plain version does.
+// and rollout; SC_PLANE_TERRAIN: the bilinear heightfield and the model's
+// static boxes, looked up under every sphere at every substep, the contact
+// of physics/dynamics.py::_contact_geometry), and on PAYLOAD (a point mass
+// at the trunk origin per rollout).  The flat instantiation keeps the z = 0
+// contact arithmetic of the flat kernel; the other grounds use the
+// general-normal contact and the (I - nn^T) friction form, as the plain
+// version does.
 // The TPU kernel bakes every model constant into a straight-line graph of
 // ~49k vector operations; here the loops over bodies, dofs, geoms and
 // arrow pairs run at run time over the tables of a SubstepModel, built once
@@ -52,12 +55,15 @@
 #define SC_BCH_MAX 8       // serial body chains below the base
 #define SC_BCHLEN_MAX 8    // bodies per body chain
 #define SC_DOFSPH_MAX SC_NG_MAX * SC_ANC_MAX  // (dof, sphere) incidences
+#define SC_NBOX_MAX 8      // static boxes of the terrain ground
 #define SC_MAGIC 0x53425331
+#define SC_GROUND_MAGIC 0x53424731
 
 // The ground of a substep instantiation (template parameter PLANE).
 #define SC_PLANE_FLAT 0  // the plane z = 0 (kernels K1, K2)
 #define SC_PLANE_LANE 1  // one plane (nx, ny, nz, d) per rollout (K3)
 #define SC_PLANE_GEOM 2  // one plane per collision geom and rollout (K4)
+#define SC_PLANE_TERRAIN 3  // heightfield + static boxes (the exact plant)
 
 // The table layout, one entry per line: INT / FLT for a scalar, INTS / FLTS
 // for a flat array and its length.  The Python wrapper reads this list to
@@ -138,6 +144,34 @@ struct SubstepModel {
   SUBSTEP_MODEL_FIELDS(SC_DECL_INT, SC_DECL_FLT, SC_DECL_INTS, SC_DECL_FLTS)
 };
 
+// The ground of SC_PLANE_TERRAIN beside the model table, in the same form:
+// the heightfield's grid (nrow x ncol heights over [-sx, sx] x [-sy, sy],
+// row ~ y, col ~ x; the heights themselves are a kernel argument) with the
+// float32 constants of its lookup as the op-graph step rounds them
+// (two_sx = 2 sx, x_max = ncol - 1.001, cell_x = 2 sx / (ncol - 1), ...),
+// and the model's static boxes (centre, half-sizes), nbox of them.
+#define SUBSTEP_GROUND_FIELDS(INT, FLT, INTS, FLTS)           \
+  INT(magic)                                                   \
+  INT(nrow)                                                    \
+  INT(ncol)                                                    \
+  INT(nbox)                                                    \
+  FLT(sx)                                                      \
+  FLT(sy)                                                      \
+  FLT(two_sx)                                                  \
+  FLT(two_sy)                                                  \
+  FLT(col_last)                                                \
+  FLT(row_last)                                                \
+  FLT(x_max)                                                   \
+  FLT(y_max)                                                   \
+  FLT(cell_x)                                                  \
+  FLT(cell_y)                                                  \
+  FLTS(box_pos, SC_NBOX_MAX * 3)                               \
+  FLTS(box_size, SC_NBOX_MAX * 3)
+
+struct SubstepGround {
+  SUBSTEP_GROUND_FIELDS(SC_DECL_INT, SC_DECL_FLT, SC_DECL_INTS, SC_DECL_FLTS)
+};
+
 // ---------------------------------------------------------------------------
 // float helpers: max/min keep a NaN first argument (as torch.clamp does)
 // ---------------------------------------------------------------------------
@@ -210,6 +244,85 @@ SC_HD void sc_quat_mul(const float* a, const float* b, float* r) {
   r[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
 }
 
+// a read of the heights: through the read-only cache on the card
+#ifdef __CUDA_ARCH__
+#define SC_LDG(p) __ldg(p)
+#else
+#define SC_LDG(p) (*(p))
+#endif
+
+// The ground of SC_PLANE_TERRAIN under the sphere of centre c and radius
+// rad: its unit normal n and its penetration phi, as
+// physics/dynamics.py::_contact_geometry computes them, operation by
+// operation as the plain version (ops/scalar_core.py) does.  The bilinear
+// heightfield (_terrain_height_normal): the lookup clipped to n - 1.001
+// cells, the normal (-dx, -dy, 1) normalised, phi = (c_z - h) n_z - rad.
+// Each box: outside it the nearest point, inside it the nearest face (the
+// first of equal faces); the nearest box (the first of equal ones) takes
+// the contact only where its phi is strictly below the heightfield's.
+SC_HD void sc_terrain_ground(const SubstepGround& gr,
+                             const float* __restrict__ heights,
+                             const float* c, float rad, float* n,
+                             float* phi_out) {
+  float fx = (c[0] + gr.sx) / gr.two_sx * gr.col_last;
+  float fy = (c[1] + gr.sy) / gr.two_sy * gr.row_last;
+  fx = sc_min(sc_max(fx, 0.0f), gr.x_max);
+  fy = sc_min(sc_max(fy, 0.0f), gr.y_max);
+  // the cell; an index clamped into the grid (a NaN centre reads cell 0)
+  int x0 = (int)floorf(fx), y0 = (int)floorf(fy);
+  x0 = x0 < 0 ? 0 : (x0 > gr.ncol - 2 ? gr.ncol - 2 : x0);
+  y0 = y0 < 0 ? 0 : (y0 > gr.nrow - 2 ? gr.nrow - 2 : y0);
+  const float tx = fx - (float)x0, ty = fy - (float)y0;
+  const float* row0 = heights + (size_t)y0 * gr.ncol + x0;
+  const float* row1 = row0 + gr.ncol;
+  const float h00 = SC_LDG(row0), h01 = SC_LDG(row0 + 1);
+  const float h10 = SC_LDG(row1), h11 = SC_LDG(row1 + 1);
+  const float ux = 1.0f - tx, uy = 1.0f - ty;
+  const float h = h00 * ux * uy + h01 * tx * uy + h10 * ux * ty + h11 * tx * ty;
+  const float dx = ((h01 - h00) * uy + (h11 - h10) * ty) / gr.cell_x;
+  const float dy = ((h10 - h00) * ux + (h11 - h01) * tx) / gr.cell_y;
+  const float nrm = sqrtf(dx * dx + dy * dy + 1.0f);
+  n[0] = -dx / nrm;
+  n[1] = -dy / nrm;
+  n[2] = 1.0f / nrm;
+  float phi = (c[2] - h) * n[2] - rad;
+  float best = 0.0f, nb[3] = {0.0f, 0.0f, 0.0f};
+  for (int b = 0; b < gr.nbox; ++b) {
+    const float* bp = gr.box_pos + 3 * b;
+    const float* bs = gr.box_size + 3 * b;
+    float rel[3], delta[3], face[3];
+    for (int k = 0; k < 3; ++k) {
+      rel[k] = c[k] - bp[k];
+      delta[k] = rel[k] - sc_min(sc_max(rel[k], -bs[k]), bs[k]);
+      face[k] = bs[k] - fabsf(rel[k]);
+    }
+    const float dist = sqrtf(delta[0] * delta[0] + delta[1] * delta[1] +
+                             delta[2] * delta[2]);
+    float pb, nbox[3];
+    if (dist < 1e-9f) {  // inside: the nearest face, the first of equal ones
+      const int ax = face[1] < face[0] ? (face[2] < face[1] ? 2 : 1)
+                                       : (face[2] < face[0] ? 2 : 0);
+      const float r = rel[ax];
+      const float sgn = r > 0.0f ? 1.0f : (r < 0.0f ? -1.0f : 0.0f);
+      for (int k = 0; k < 3; ++k) nbox[k] = sgn * (k == ax ? 1.0f : 0.0f);
+      pb = -face[ax] - rad;
+    } else {
+      const float d = sc_max(dist, 1e-9f);
+      for (int k = 0; k < 3; ++k) nbox[k] = delta[k] / d;
+      pb = dist - rad;
+    }
+    if (b == 0 || pb < best) {
+      best = pb;
+      for (int k = 0; k < 3; ++k) nb[k] = nbox[k];
+    }
+  }
+  if (gr.nbox > 0 && best < phi) {
+    phi = best;
+    for (int k = 0; k < 3; ++k) n[k] = nb[k];
+  }
+  *phi_out = phi;
+}
+
 // inertia (A sym6, c, m) applied to the spatial vector (w, v):
 // (A w + (c x v) m, (v - c x w) m)
 SC_HD void sc_inertia_apply(const float* A, const float* c, float m,
@@ -228,14 +341,15 @@ SC_HD void sc_inertia_apply(const float* A, const float* c, float m,
 //
 // plane: for SC_PLANE_LANE the rollout's (nx, ny, nz, d) at plane[r * stride];
 // for SC_PLANE_GEOM row r = 4 g + c of geom g at plane[r * stride], read in
-// the contact loop (column k of the (rows, K) input); unused when flat.
+// the contact loop (column k of the (rows, K) input); for SC_PLANE_TERRAIN
+// the (nrow, ncol) heights of `ground`'s grid; unused when flat.
 // payload: the rollout's point mass [kg] at the trunk origin, when PAYLOAD.
 // ---------------------------------------------------------------------------
 
 template <int PLANE, bool PAYLOAD>
 SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
                       const float* ctrl, const float* plane, int stride,
-                      float payload) {
+                      float payload, const SubstepGround* ground = nullptr) {
   const int nb = m.nb, nv = m.nv;
   const float dt = m.dt;
   float lane_n[3] = {0.0f, 0.0f, 1.0f}, lane_d = 0.0f;
@@ -478,17 +592,23 @@ SC_HD void sc_substep(const SubstepModel& m, float* qpos, float* qvel,
     const int* dofs = m.body_dofs + b * SC_NV_MAX;
     float J[SC_NV_MAX][3];  // J rows of the ancestor dofs: S_lin + S_ang x r
     if (PLANE != SC_PLANE_FLAT) {
-      // plane {n.x = d}: the lane's, or this geom's (strided global loads)
-      float n[3], d;
-      if (PLANE == SC_PLANE_GEOM) {
-        const float* pg = plane + (4 * g) * stride;
-        for (int k = 0; k < 3; ++k) n[k] = pg[k * stride];
-        d = pg[3 * stride];
+      // plane {n.x = d}: the lane's, or this geom's (strided global loads);
+      // or the terrain's ground under the sphere
+      float n[3], phi;
+      if (PLANE == SC_PLANE_TERRAIN) {
+        sc_terrain_ground(*ground, plane, center, rad, n, &phi);
       } else {
-        for (int k = 0; k < 3; ++k) n[k] = lane_n[k];
-        d = lane_d;
+        float d;
+        if (PLANE == SC_PLANE_GEOM) {
+          const float* pg = plane + (4 * g) * stride;
+          for (int k = 0; k < 3; ++k) n[k] = pg[k * stride];
+          d = pg[3 * stride];
+        } else {
+          for (int k = 0; k < 3; ++k) n[k] = lane_n[k];
+          d = lane_d;
+        }
+        phi = (center[0] * n[0] + center[1] * n[1] + center[2] * n[2]) - d - rad;
       }
-      const float phi = (center[0] * n[0] + center[1] * n[1] + center[2] * n[2]) - d - rad;
       const float pen = sc_min(sc_max(0.0f - phi, 0.0f), 0.05f);
       const float active = phi < 0.0f ? 1.0f : 0.0f;
       const float fn = sc_min(m.geom_k[g] * pen, 1e4f);

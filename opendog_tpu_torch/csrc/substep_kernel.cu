@@ -51,6 +51,17 @@
 // rollout) with SC_WARPS_SMALL = 8 rollouts per block: two blocks (16
 // warps) per SM, two waves, 0.52 ms (PERF.md).  That is a layout chosen on
 // the host from the model, not a fallback.
+//
+// The exact plant (exact_plant) is the same warp design on the ground of
+// physics/dynamics.py::step: at every substep each sphere looks up the
+// bilinear heightfield under its centre (four reads of the heights through
+// the read-only cache: 960 reads a 10-substep launch of OpenDOG's 24
+// spheres, where staging a 100 x 100 grid in shared memory would copy 40 KB
+// at every launch) and tests the model's static boxes, whose
+// table (SubstepGround, substep_core.cuh) follows the model's in shared
+// memory.  It is the MPC plant on a terrain (K = 1, all the substeps of a
+// tick in one launch), not a rollout kernel: its entry point is named
+// outside substep_*, and its launches are counted apart from theirs.
 #include <cuda_runtime.h>
 
 #include "substep_core.cuh"
@@ -126,6 +137,52 @@ SC_WARP_KERNEL(substep_pergeom_payload, SC_PLANE_GEOM, true)
 // the batch's kernel for models with at most SC_NG_SMALL spheres
 SC_WARP_KERNEL_OF(substep_plane_payload_small, SC_PLANE_LANE, true,
                   SC_NG_SMALL, SC_WARPS_SMALL)
+
+// The exact plant: the terrain ground (SC_PLANE_TERRAIN), no payload, the
+// full workspace, SC_WARPS rollouts per block.  Shared memory: the model
+// table, the ground table, then the workspaces.
+#define SC_GROUND_BYTES ((sizeof(SubstepGround) + 15) / 16 * 16)
+constexpr size_t exact_plant_smem() {
+  return SC_TABLE_BYTES + SC_GROUND_BYTES +
+         SC_WARPS * sizeof(SubstepWorkOf<SC_PLANE_TERRAIN, SC_NG_MAX>);
+}
+
+extern "C" __global__ void __launch_bounds__(SC_LANES* SC_WARPS)
+    exact_plant(const SubstepModel* __restrict__ model,
+                const SubstepGround* __restrict__ ground,
+                const float* __restrict__ heights,
+                const float* __restrict__ qpos, const float* __restrict__ qvel,
+                const float* __restrict__ ctrl, float* __restrict__ qpos_out,
+                float* __restrict__ qvel_out, int K, int n_substeps) {
+  extern __shared__ __align__(16) unsigned char sc_smem[];
+  SubstepModel& sm = *reinterpret_cast<SubstepModel*>(sc_smem);
+  SubstepGround& sg =
+      *reinterpret_cast<SubstepGround*>(sc_smem + SC_TABLE_BYTES);
+  {
+    const int* src = reinterpret_cast<const int*>(model);
+    int* dst = reinterpret_cast<int*>(sc_smem);
+    const int words = (int)(sizeof(SubstepModel) / sizeof(int));
+    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
+    const int* gsrc = reinterpret_cast<const int*>(ground);
+    int* gdst = reinterpret_cast<int*>(&sg);
+    const int gwords = (int)(sizeof(SubstepGround) / sizeof(int));
+    for (int i = threadIdx.x; i < gwords; i += blockDim.x) gdst[i] = gsrc[i];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / SC_LANES, lane = threadIdx.x % SC_LANES;
+  const int k = blockIdx.x * SC_WARPS + warp;
+  if (k >= K) return;
+  typedef SubstepWorkOf<SC_PLANE_TERRAIN, SC_NG_MAX> Work;
+  Work& w = reinterpret_cast<Work*>(sc_smem + SC_TABLE_BYTES +
+                                    SC_GROUND_BYTES)[warp];
+  scw_load<SC_PLANE_TERRAIN, false>(sm, w, lane, qpos, qvel, ctrl, nullptr,
+                                    nullptr, K, k);
+  __syncwarp();
+  for (int s = 0; s < n_substeps; ++s)
+    sc_warp_substep<SC_PLANE_TERRAIN, false>(sm, w, lane, false, &sg,
+                                             heights);
+  scw_store(sm, w, lane, qpos_out, qvel_out, K, k);
+}
 
 // ---------------------------------------------------------------------------
 // C interface
@@ -239,5 +296,45 @@ extern "C" int substep_launch(const void* model_, const float* qpos,
   if (e != cudaSuccess) return (int)e;
   const int grid = (K + k.warps - 1) / k.warps;
   k.fn<<<grid, SC_LANES * k.warps, k.smem, (cudaStream_t)stream>>>(SC_PASS);
+  return (int)cudaGetLastError();
+}
+
+// The exact plant's ground table size, rollouts per block, dynamic shared
+// memory per block [B] and blocks resident per SM on the current device
+// (-1 on a CUDA error).
+extern "C" int exact_plant_ground_size() { return (int)sizeof(SubstepGround); }
+extern "C" int exact_plant_warps_per_block() { return SC_WARPS; }
+extern "C" int exact_plant_smem_bytes() { return (int)exact_plant_smem(); }
+static cudaError_t exact_plant_opt_in() {
+  return cudaFuncSetAttribute((const void*)exact_plant,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)exact_plant_smem());
+}
+extern "C" int exact_plant_occupancy() {
+  int blocks = 0;
+  if (exact_plant_opt_in() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, (const void*)exact_plant, SC_LANES * SC_WARPS,
+          exact_plant_smem()) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Launches the exact plant on `stream` for K rollouts of n_substeps
+// substeps and returns cudaGetLastError() (0 on success); does not
+// synchronise.  `model` and `ground` are device copies of the model's
+// SubstepModel and SubstepGround, `heights` the (nrow, ncol) grid.
+extern "C" int exact_plant_launch(const void* model, const void* ground,
+                                  const float* heights, const float* qpos,
+                                  const float* qvel, const float* ctrl,
+                                  float* qpos_out, float* qvel_out, int K,
+                                  int n_substeps, void* stream) {
+  const cudaError_t e = exact_plant_opt_in();
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (K + SC_WARPS - 1) / SC_WARPS;
+  exact_plant<<<grid, SC_LANES * SC_WARPS, exact_plant_smem(),
+                (cudaStream_t)stream>>>(
+      (const SubstepModel*)model, (const SubstepGround*)ground, heights, qpos,
+      qvel, ctrl, qpos_out, qvel_out, K, n_substeps);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,9 @@
 //   trunk      one lane per component of (fsub, IA, CB, Cm) of the base:
 //              the chain heads added in descending body order;
 //   dof_geom   per dof: bias, actuator and limit terms of qfrc, ddiag, F;
-//              per sphere: its contact scalars and J rows (workspace) and,
-//              in the plane modes, each row's J.n;
+//              per sphere: on the terrain ground its heightfield and box
+//              lookup, its contact scalars and J rows (workspace) and, in
+//              the plane modes, each row's J.n;
 //   pair       per arrow pair: M, the contact sum of D over its spheres in
 //              increasing order, A; per dof: the contact terms of qfrc over
 //              its spheres in increasing order;
@@ -52,7 +53,7 @@
 template <int NG>
 struct SubstepWorkNG {
   float qpos[SC_NQ_MAX], qvel[SC_NV_MAX], ctrl[SC_NU_MAX];
-  float plane[4 * NG];  // lane plane (4) or per-geom planes (4 ng)
+  float plane[4 * NG];  // lane plane (4), per-geom planes or terrain normals
   float payload, m0;    // payload [kg]; the base's mass with it
   float q0[4];
   float xpos[SC_NB_MAX][3], xquat[SC_NB_MAX][4], R[SC_NB_MAX][9];
@@ -346,9 +347,13 @@ SC_HD void scw_trunk(const SubstepModel& m, Work& w, int lane) {
 
 // dof `lane`: qfrc's bias, actuator and limit terms, ddiag, F; then the
 // contact scalars and J rows of spheres lane, lane + 32, ... (and, in the
-// plane modes, each row's J.n, which the pair phase reads)
+// plane modes, each row's J.n, which the pair phase reads).  On the terrain
+// ground the lane looks up each of its spheres' normal and keeps it in the
+// sphere's plane row (the row's d unused), where it reads it back.
 template <int PLANE, class Work>
-SC_HD void scw_dof_geom(const SubstepModel& m, Work& w, int lane) {
+SC_HD void scw_dof_geom(const SubstepModel& m, Work& w, int lane,
+                        const SubstepGround* ground = nullptr,
+                        const float* heights = nullptr) {
   const int j = lane;
   if (j < m.nv) {
     const int b = m.dof_body[j];
@@ -388,9 +393,14 @@ SC_HD void scw_dof_geom(const SubstepModel& m, Work& w, int lane) {
     sc_apply(w.R[b], m.geom_pos + 3 * g, t);
     for (int k = 0; k < 3; ++k) center[k] = w.xpos[b][k] + t[k];
     if (PLANE != SC_PLANE_FLAT) {
-      const float* pl = w.plane + (PLANE == SC_PLANE_GEOM ? 4 * g : 0);
+      float phi_t = 0.0f;
+      if constexpr (PLANE == SC_PLANE_TERRAIN)
+        sc_terrain_ground(*ground, heights, center, rad, w.plane + 4 * g, &phi_t);
+      const float* pl = w.plane + (PLANE == SC_PLANE_LANE ? 0 : 4 * g);
       const float n[3] = {pl[0], pl[1], pl[2]};
-      const float phi = (center[0] * n[0] + center[1] * n[1] + center[2] * n[2]) - pl[3] - rad;
+      const float phi = PLANE == SC_PLANE_TERRAIN
+                            ? phi_t
+                            : (center[0] * n[0] + center[1] * n[1] + center[2] * n[2]) - pl[3] - rad;
       const float pen = sc_min(sc_max(0.0f - phi, 0.0f), 0.05f);
       active = phi < 0.0f ? 1.0f : 0.0f;
       fn = sc_min(m.geom_k[g] * pen, 1e4f);
@@ -420,7 +430,7 @@ SC_HD void scw_dof_geom(const SubstepModel& m, Work& w, int lane) {
     w.dn[g] = m.geom_d[g] * active;
     w.kap[g] = kappa * active;
     const int* dofs = m.body_dofs + b * SC_NV_MAX;
-    const float* n = w.plane + (PLANE == SC_PLANE_GEOM ? 4 * g : 0);
+    const float* n = w.plane + (PLANE == SC_PLANE_LANE ? 0 : 4 * g);
     for (int d = 0; d < m.body_ndof[b]; ++d) {
       const float* Sj = w.S[dofs[d]];
       float Jd[3];
@@ -674,12 +684,14 @@ SC_HD void scw_quat(const SubstepModel& m, Work& w, int lane) {
 // ---------------------------------------------------------------------------
 // the substep: advances w.qpos and w.qvel.  On the card `lane` is the
 // calling thread's lane and `rev` is unused; on the host `lane` is unused and
-// every phase loops over the lanes (in reverse with `rev`).
+// every phase loops over the lanes (in reverse with `rev`).  `ground` and
+// `heights` are SC_PLANE_TERRAIN's (sc_substep's `ground` and `plane`).
 // ---------------------------------------------------------------------------
 
 template <int PLANE, bool PAYLOAD, class Work>
 SC_HD void sc_warp_substep(const SubstepModel& m, Work& w, int lane,
-                           bool rev) {
+                           bool rev, const SubstepGround* ground = nullptr,
+                           const float* heights = nullptr) {
   (void)lane;
   (void)rev;
   SC_PHASE(scw_fk_base(w, lane));
@@ -688,7 +700,7 @@ SC_HD void sc_warp_substep(const SubstepModel& m, Work& w, int lane,
   SC_PHASE(scw_vel<PAYLOAD>(m, w, lane));
   SC_PHASE(scw_rnea<PAYLOAD>(m, w, lane));
   SC_PHASE(scw_trunk(m, w, lane));
-  SC_PHASE(scw_dof_geom<PLANE>(m, w, lane));
+  SC_PHASE(scw_dof_geom<PLANE>(m, w, lane, ground, heights));
   SC_PHASE(scw_pair<PLANE>(m, w, lane));
   SC_PHASE(scw_rhs_inv(m, w, lane));
   SC_PHASE(scw_schur_pre(m, w, lane));

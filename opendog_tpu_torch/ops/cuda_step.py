@@ -1,4 +1,5 @@
-"""The fused physics substep on the card: wrapper of CUDA kernels K1-K4.
+"""The fused physics substep on the card: wrapper of CUDA kernels K1-K4
+and of the exact terrain plant.
 
 Port of ``opendog_tpu/ops/pallas_step.py`` (``build_pallas_substep``, the
 ``pl.pallas_call`` at line 115) in each of its modes: flat ground (K1), a
@@ -14,6 +15,11 @@ Layout as in the JAX package: ``qpos (nq, K)``, ``qvel (nv, K)``,
 float32, contiguous.  A step bound to a CUDA device launches its kernel on
 the current stream; a step bound to the CPU runs the plain PyTorch version
 (:mod:`.scalar_core`).  There is no fallback from one to the other.
+
+:class:`ExactPlant` is the exact plant on a terrain (``exact_plant`` in the
+same ``.cu`` file, the warp design on the ground of ``dynamics.step``: the
+bilinear heightfield and the model's static boxes looked up under every
+sphere at every substep); its launches go to :data:`PLANT_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -54,6 +60,11 @@ _PLANE_CODE = {False: 0, True: 1, "per_geom": 2}  # SC_PLANE_* of the header
 # so a graph's replay counts as its eager call.  Read and reset by whoever
 # needs to show that a run went through the kernels.
 LAUNCHES: collections.Counter = profiling.counter()
+# Launches of the exact plant (``exact_plant``, the plant layer's kernel),
+# keyed "exact_plant K=1 x10" as LAUNCHES keys the substep kernels; a
+# counter of its own, so that LAUNCHES holds the rollout kernels' alone.
+EXACT_PLANT = "exact_plant"
+PLANT_LAUNCHES: collections.Counter = profiling.counter()
 
 
 def kernel_name(with_plane=False, with_payload: bool = False) -> str:
@@ -75,10 +86,12 @@ def launch_key(K: int, n_substeps: int, with_plane=False,
 
 
 @functools.lru_cache(maxsize=None)
-def table_layout() -> Tuple[Dict[str, int], type]:
-    """The compile-time constants and the ctypes mirror of ``SubstepModel``,
-    read from the field list of ``csrc/substep_core.cuh`` (the one statement
-    of the layout)."""
+def table_layout(fields_macro: str = "SUBSTEP_MODEL_FIELDS"
+                 ) -> Tuple[Dict[str, int], type]:
+    """The compile-time constants and the ctypes mirror of ``SubstepModel``
+    (or, with ``"SUBSTEP_GROUND_FIELDS"``, of ``SubstepGround``), read from
+    the field list of ``csrc/substep_core.cuh`` (the one statement of the
+    layout)."""
     with open(os.path.join(build.CSRC, "substep_core.cuh")) as f:
         src = f.read()
     consts: Dict[str, int] = {}
@@ -87,7 +100,7 @@ def table_layout() -> Tuple[Dict[str, int], type]:
         if all(t.isdigit() or t.startswith("0x") or t in consts for t in terms):
             consts[name] = int(np.prod([consts[t] if t in consts else int(t, 0)
                                         for t in terms]))
-    body = src[src.index("#define SUBSTEP_MODEL_FIELDS"):]
+    body = src[src.index(f"#define {fields_macro}"):]
     body = body[:body.index("\n\n")]
     fields = []
     for kind, name, size in re.findall(
@@ -99,10 +112,9 @@ def table_layout() -> Tuple[Dict[str, int], type]:
             ctype = ctype * n
         fields.append((name, ctype))
 
-    class SubstepModel(ctypes.Structure):
-        _fields_ = fields
-
-    return consts, SubstepModel
+    name = {"SUBSTEP_MODEL_FIELDS": "SubstepModel",
+            "SUBSTEP_GROUND_FIELDS": "SubstepGround"}[fields_macro]
+    return consts, type(name, (ctypes.Structure,), {"_fields_": fields})
 
 
 def substep_table(model: Model, dt: float) -> ctypes.Structure:
@@ -201,6 +213,29 @@ def substep_table(model: Model, dt: float) -> ctypes.Structure:
     return t
 
 
+def ground_table(model: Model, nrow: int, ncol: int) -> ctypes.Structure:
+    """The exact plant's ground table (``SubstepGround`` of
+    ``csrc/substep_core.cuh``) for a (nrow, ncol) heightfield over the
+    model's ``hfield_size`` and the model's static boxes: the constants of
+    ``scalar_core.ground_constants``.  Raises for more boxes than
+    ``SC_NBOX_MAX``."""
+    c, SubstepGround = table_layout("SUBSTEP_GROUND_FIELDS")
+    gc = scalar_core.ground_constants(model, nrow, ncol)
+    nbox = len(gc["box_pos"])
+    if nbox > c["SC_NBOX_MAX"]:
+        raise ValueError(f"model has {nbox} static boxes; SC_NBOX_MAX="
+                         f"{c['SC_NBOX_MAX']} of csrc/substep_core.cuh")
+    t = SubstepGround()
+    t.magic, t.nrow, t.ncol, t.nbox = c["SC_GROUND_MAGIC"], nrow, ncol, nbox
+    for name in ("sx", "sy", "two_sx", "two_sy", "col_last", "row_last",
+                 "x_max", "y_max", "cell_x", "cell_y"):
+        setattr(t, name, float(gc[name]))
+    for name in ("box_pos", "box_size"):
+        values = [float(v) for v in gc[name].reshape(-1)]
+        getattr(t, name)[:len(values)] = values
+    return t
+
+
 def _put_warp_lists(t, put, model: Model, c, body_dofs, pairs) -> None:
     """The index lists of the warp design (``csrc/substep_warp.cuh``): body
     chains, pair (i, j), each dof's position in the ancestor-dof lists and
@@ -277,6 +312,10 @@ def cuda_library() -> Tuple[ctypes.CDLL, "build.BuiltLibrary"]:
     if lib.substep_model_size() != ctypes.sizeof(table_layout()[1]):
         raise RuntimeError("SubstepModel layout differs between the CUDA "
                            "library and its Python mirror")
+    if lib.exact_plant_ground_size() != ctypes.sizeof(
+            table_layout("SUBSTEP_GROUND_FIELDS")[1]):
+        raise RuntimeError("SubstepGround layout differs between the CUDA "
+                           "library and its Python mirror")
     return lib, built
 
 
@@ -297,6 +336,13 @@ def load_library(path: str) -> ctypes.CDLL:
     lib.substep_launch.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.substep_launch.restype = ctypes.c_int
+    for fn in (lib.exact_plant_ground_size, lib.exact_plant_warps_per_block,
+               lib.exact_plant_smem_bytes, lib.exact_plant_occupancy):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.exact_plant_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.exact_plant_launch.restype = ctypes.c_int
     return lib
 
 
@@ -310,18 +356,39 @@ def build_plain_substep(model: Model, dt: float, n_substeps: int = 1,
                         with_payload: bool = False) -> Callable:
     """The plain PyTorch version of the kernels, on tensors of any device:
     ``step(qpos (nq,K), qvel (nv,K), ctrl (nu,K), plane=None, payload=None)
-    -> (qpos', qvel')``."""
+    -> (qpos', qvel')``; with ``with_plane="terrain"`` (the exact plant's)
+    ``plane`` is the (nrow, ncol) heights."""
     sub = scalar_core.build_substep(model, dt, with_plane, with_payload)
+    terrain = with_plane == scalar_core.TERRAIN
 
     def step(qpos, qvel, ctrl, plane=None, payload=None):
         qp, qv, ct = qpos.unbind(0), qvel.unbind(0), ctrl.unbind(0)
-        pl = plane.unbind(0) if plane is not None else None
+        pl = (plane if terrain else
+              plane.unbind(0) if plane is not None else None)
         py = payload[0] if payload is not None else None
         for _ in range(n_substeps):
             qp, qv = sub(qp, qv, ct, pl, py)
         return torch.stack(qp), torch.stack(qv)
 
     return step
+
+
+def _check_rows(device, arrays) -> int:
+    """K of the (rows, K) inputs ``arrays`` ((name, tensor, rows), qpos
+    first); raises unless each is float32, contiguous and on ``device``."""
+    qpos = arrays[0][1]
+    K = qpos.shape[-1] if qpos.dim() == 2 else -1
+    for name, x, rows in arrays:
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, the step on {device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.dim() != 2 or x.shape != (rows, K) or K < 1:
+            raise ValueError(f"{name} must have shape ({rows}, K), got "
+                             f"{tuple(x.shape)} (K from qpos: {K})")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return K
 
 
 class CudaSubstep:
@@ -363,7 +430,6 @@ class CudaSubstep:
             raise ValueError(f"unsupported device {self.device}")
 
     def _check(self, qpos, qvel, ctrl, plane, payload) -> int:
-        K = qpos.shape[-1] if qpos.dim() == 2 else -1
         arrays = [("qpos", qpos, self.nq), ("qvel", qvel, self.nv),
                   ("ctrl", ctrl, self.nu)]
         for name, x, rows, wanted in (("plane", plane, self.plane_rows,
@@ -378,18 +444,7 @@ class CudaSubstep:
                                  "step with its mode to pass one")
             if wanted:
                 arrays.append((name, x, rows))
-        for name, x, rows in arrays:
-            if x.device != self.device:
-                raise ValueError(f"{name} is on {x.device}, the step on "
-                                 f"{self.device}")
-            if x.dtype != torch.float32:
-                raise ValueError(f"{name} must be float32, got {x.dtype}")
-            if x.dim() != 2 or x.shape != (rows, K) or K < 1:
-                raise ValueError(f"{name} must have shape ({rows}, K), got "
-                                 f"{tuple(x.shape)} (K from qpos: {K})")
-            if not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        return K
+        return _check_rows(self.device, arrays)
 
     def __call__(self, qpos, qvel, ctrl, plane=None, payload=None):
         K = self._check(qpos, qvel, ctrl, plane, payload)
@@ -410,6 +465,79 @@ class CudaSubstep:
                                f"error {rc}")
         LAUNCHES[launch_key(K, self.n_substeps, self.with_plane,
                             self.with_payload)] += 1
+        return qpos_out, qvel_out
+
+
+def plant_launch_key(K: int, n_substeps: int) -> str:
+    return f"{EXACT_PLANT} K={K} x{n_substeps}"
+
+
+class ExactPlant:
+    """``step(qpos (nq,K), qvel (nv,K), ctrl (nu,K)) -> (qpos', qvel')``
+    running ``n_substeps`` substeps of timestep ``dt`` per call on the
+    ground of ``physics.dynamics.step`` on a terrain: the bilinear
+    heightfield ``heights`` (one (nrow, ncol) grid over the model's
+    ``hfield_size``, under every rollout) and the model's static boxes,
+    looked up under every sphere at every substep.  On CUDA one launch of
+    ``exact_plant`` a call, counted in :data:`PLANT_LAUNCHES`; on the CPU
+    the plain version (``scalar_core``'s terrain ground).  The step keeps
+    ``heights`` (a CUDA graph that replays it reads that memory).  Raises
+    for a model the kernel does not take: as :func:`substep_table`, more
+    static boxes than ``SC_NBOX_MAX``, or the progressive contact
+    impedance (``geom_imp_dmin``), which only the op-graph step
+    computes."""
+
+    def __init__(self, model: Model, dt: float, n_substeps: int,
+                 heights: torch.Tensor, device=None):
+        if n_substeps < 1:
+            raise ValueError("n_substeps must be >= 1")
+        if model.geom_imp_dmin is not None:
+            raise ValueError("the exact plant kernel has no progressive "
+                             "contact impedance (geom_imp_dmin): the "
+                             "op-graph step computes that contact")
+        self.device = resolve_device(device)
+        if heights.dim() != 2:
+            raise ValueError(f"heights must be one (nrow, ncol) grid, got "
+                             f"shape {tuple(heights.shape)}")
+        if heights.device != self.device or heights.dtype != torch.float32:
+            raise ValueError(f"heights must be float32 on {self.device}, "
+                             f"got {heights.dtype} on {heights.device}")
+        self.heights = heights.contiguous()
+        self.dt, self.n_substeps = float(dt), int(n_substeps)
+        self.nq, self.nv, self.nu = model.nq, model.nv, model.nu
+        table = substep_table(model, dt)
+        ground = ground_table(model, *self.heights.shape)
+        if self.device.type == "cuda":
+            self._lib, _ = cuda_library()
+            as_bytes = lambda t: torch.frombuffer(
+                bytearray(memoryview(t).cast("B")), dtype=torch.uint8).to(
+                    self.device)
+            self._table, self._ground = as_bytes(table), as_bytes(ground)
+            self._plain = None
+        elif self.device.type == "cpu":
+            self._plain = build_plain_substep(model, dt, n_substeps,
+                                              scalar_core.TERRAIN)
+        else:
+            raise ValueError(f"unsupported device {self.device}")
+
+    def __call__(self, qpos, qvel, ctrl):
+        K = _check_rows(self.device, (("qpos", qpos, self.nq),
+                                      ("qvel", qvel, self.nv),
+                                      ("ctrl", ctrl, self.nu)))
+        if self._plain is not None:
+            return self._plain(qpos, qvel, ctrl, self.heights)
+        qpos_out = torch.empty_like(qpos)
+        qvel_out = torch.empty_like(qvel)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = self._lib.exact_plant_launch(
+            self._table.data_ptr(), self._ground.data_ptr(),
+            self.heights.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
+            ctrl.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(), K,
+            self.n_substeps, stream)
+        if rc != 0:
+            raise RuntimeError(f"{EXACT_PLANT} kernel launch failed: CUDA "
+                               f"error {rc}")
+        PLANT_LAUNCHES[plant_launch_key(K, self.n_substeps)] += 1
         return qpos_out, qvel_out
 
 

@@ -12,9 +12,12 @@ This is what the CUDA kernel (``csrc/substep_core.cuh``) is held against:
 compares the kernel with it on the card.  It runs on any device.
 
 Scope: floating-base quadrupeds with the block-arrow structure (free base +
-serial leg chains), position-servo actuators, and one of three grounds: the
-plane z=0 (flat, K1), one contact plane per lane (``with_plane=True``, K3)
-or one plane per collision geom and lane (``with_plane="per_geom"``, K4);
+serial leg chains), position-servo actuators, and one of four grounds: the
+plane z=0 (flat, K1), one contact plane per lane (``with_plane=True``, K3),
+one plane per collision geom and lane (``with_plane="per_geom"``, K4), or
+the bilinear heightfield and the model's static boxes looked up under every
+sphere at every substep (``with_plane="terrain"``, the exact plant's
+kernel: the contact of ``physics/dynamics.py::step`` on a terrain);
 optionally a per-lane point mass at the trunk origin (``with_payload``,
 K2).  The flat mode keeps its own contact arithmetic, operation for
 operation the form the JAX package keeps bit-identical to its validated
@@ -223,6 +226,8 @@ def _rdiv(c: float, x):
 
 
 PLANE_MODES = (False, True, "per_geom")
+# the exact plant's ground: build_substep's fourth, beside the plane modes
+TERRAIN = "terrain"
 
 
 def plane_rows(model: Model, with_plane) -> int:
@@ -233,6 +238,92 @@ def plane_rows(model: Model, with_plane) -> int:
                          f"{with_plane!r}")
     return (4 * model.ngeom if with_plane == "per_geom"
             else 4 if with_plane else 0)
+
+
+def ground_constants(model: Model, nrow: int, ncol: int) -> dict:
+    """The terrain ground's constants for a (nrow, ncol) heightfield, as
+    float32 values rounded as ``dynamics._terrain_height_normal`` rounds
+    them (``2 * sx``, ``ncol - 1.001``, ``2 * sx / (ncol - 1)``, ...), and
+    the model's static boxes: what the plain version and the kernel's ground
+    table (``csrc/substep_core.cuh``, ``SubstepGround``) both read."""
+    if nrow < 2 or ncol < 2:
+        raise ValueError(f"a heightfield needs 2 x 2 heights at least, got "
+                         f"{nrow} x {ncol}")
+    f32 = np.float32
+    sx, sy = (f32(v) for v in model.numpy("hfield_size")[:2])
+    two_sx, two_sy = f32(2) * sx, f32(2) * sy
+    col_last, row_last = f32(ncol - 1), f32(nrow - 1)
+    return dict(
+        nrow=int(nrow), ncol=int(ncol), sx=sx, sy=sy, two_sx=two_sx,
+        two_sy=two_sy, col_last=col_last, row_last=row_last,
+        x_max=f32(ncol - 1.001), y_max=f32(nrow - 1.001),
+        cell_x=two_sx / col_last, cell_y=two_sy / row_last,
+        box_pos=model.numpy("wbox_pos").astype(np.float32).reshape(-1, 3),
+        box_size=model.numpy("wbox_size").astype(np.float32).reshape(-1, 3))
+
+
+def terrain_ground(gc: dict, heights: torch.Tensor, center, rad: float,
+                   zero):
+    """The terrain ground under the spheres of lane-vector ``center`` and
+    radius ``rad``: (unit normal as three lane vectors, penetration phi),
+    as ``dynamics._contact_geometry`` computes them, and operation by
+    operation as the kernel does (``sc_terrain_ground`` in
+    ``csrc/substep_core.cuh``).  Every divisor is a lane vector, so that
+    PyTorch divides on every device (by a Python float CUDA multiplies by
+    its reciprocal)."""
+    cx, cy, cz = center
+    const = lambda v: zero + float(v)
+    fx = (cx + float(gc["sx"])) / const(gc["two_sx"]) * float(gc["col_last"])
+    fy = (cy + float(gc["sy"])) / const(gc["two_sy"]) * float(gc["row_last"])
+    fx = _min(_max(fx, 0.0), float(gc["x_max"]))
+    fy = _min(_max(fy, 0.0), float(gc["y_max"]))
+    # the cell, an index clamped into the grid (a NaN centre reads cell 0)
+    ncol = gc["ncol"]
+    x0 = torch.nan_to_num(torch.floor(fx), nan=0.0).long().clamp(0, ncol - 2)
+    y0 = torch.nan_to_num(torch.floor(fy), nan=0.0).long().clamp(
+        0, gc["nrow"] - 2)
+    tx = fx - x0
+    ty = fy - y0
+    h00, h01 = heights[y0, x0], heights[y0, x0 + 1]
+    h10, h11 = heights[y0 + 1, x0], heights[y0 + 1, x0 + 1]
+    ux, uy = 1.0 - tx, 1.0 - ty
+    h = h00 * ux * uy + h01 * tx * uy + h10 * ux * ty + h11 * tx * ty
+    dx = ((h01 - h00) * uy + (h11 - h10) * ty) / const(gc["cell_x"])
+    dy = ((h10 - h00) * ux + (h11 - h01) * tx) / const(gc["cell_y"])
+    nrm = _sqrt(dx * dx + dy * dy + 1.0)
+    n = (torch.neg(dx) / nrm, torch.neg(dy) / nrm, 1.0 / nrm)
+    phi = (cz - h) * n[2] - rad
+    best = nb = None
+    for bp, bs in zip(gc["box_pos"], gc["box_size"]):
+        rel = [c - float(p) for c, p in zip(center, bp)]
+        delta = [r - _min(_max(r, -float(s)), float(s))
+                 for r, s in zip(rel, bs)]
+        face = [float(s) - torch.abs(r) for r, s in zip(rel, bs)]
+        dist = _sqrt(delta[0] * delta[0] + delta[1] * delta[1]
+                     + delta[2] * delta[2])
+        inside = dist < 1e-9
+        # inside: the nearest face, the first of equal ones
+        ax = _where(face[1] < face[0], _where(face[2] < face[1], 2, 1),
+                    _where(face[2] < face[0], 2, 0))
+        r_ax = _where(ax == 0, rel[0], _where(ax == 1, rel[1], rel[2]))
+        one = torch.ones_like(r_ax)
+        sgn = _where(r_ax > 0.0, one, _where(r_ax < 0.0, -one, zero))
+        face_ax = _where(ax == 0, face[0], _where(ax == 1, face[1], face[2]))
+        d = _max(dist, 1e-9)
+        nbox = tuple(_where(inside, sgn * _where(ax == k, one, zero),
+                            delta[k] / d) for k in range(3))
+        pb = _where(inside, torch.neg(face_ax), dist) - rad
+        if best is None:
+            best, nb = pb, nbox
+        else:
+            take = pb < best
+            best = _where(take, pb, best)
+            nb = tuple(_where(take, a, b) for a, b in zip(nbox, nb))
+    if best is not None:
+        use = best < phi
+        phi = _where(use, best, phi)
+        n = tuple(_where(use, a, b) for a, b in zip(nb, n))
+    return n, phi
 
 
 def build_substep(model: Model, dt: float,
@@ -246,9 +337,18 @@ def build_substep(model: Model, dt: float,
     substep takes ``plane = (nx, ny, nz, d)`` lane vectors: a per-lane
     contact plane {x : n.x = d} (n unit).  With ``with_plane="per_geom"``
     it takes ``4 * ngeom`` lane vectors, rows ``4g..4g+3`` the plane of
-    geom g.  With ``with_payload=True`` it takes ``payload``, a lane vector
-    of point masses [kg] rigidly attached at the trunk origin."""
-    plane_rows(model, with_plane)
+    geom g.  With ``with_plane="terrain"`` ``plane`` is the (nrow, ncol)
+    heights of a terrain (``physics.Terrain.height``, one grid under every
+    lane) over the model's ``hfield_size``, and each sphere's ground is
+    looked up in it, and in the model's static boxes, at every substep
+    (:func:`terrain_ground`); it takes no payload.  With
+    ``with_payload=True`` it takes ``payload``, a lane vector of point
+    masses [kg] rigidly attached at the trunk origin."""
+    terrain = with_plane == TERRAIN
+    if terrain and with_payload:
+        raise ValueError("the terrain ground takes no payload")
+    if not terrain:
+        plane_rows(model, with_plane)
     structure = dyn._arrow_structure(model)
     if structure is None:
         raise ValueError("scalar core needs the quadruped block-arrow "
@@ -300,13 +400,19 @@ def build_substep(model: Model, dt: float,
             hinge_of_dof[model.body_dof_adr[b]] = (b, model.body_qpos_adr[b])
 
     pairs = arrow_pairs(model)
+    grounds = {}  # the terrain ground's constants by grid shape
 
     def substep(qpos: Sequence, qvel: Sequence, ctrl: Sequence,
                 plane: Sequence = None, payload=None):
         zero = qpos[0] * 0.0
         one = zero + 1.0
         per_geom = with_plane == "per_geom"
-        if per_geom:
+        if terrain:
+            shape = tuple(plane.shape)
+            if shape not in grounds:
+                grounds[shape] = ground_constants(model, *shape)
+            gc = grounds[shape]
+        if per_geom or terrain:
             pn, pd = None, None    # resolved per geom in the contact loop
         elif with_plane:
             pn = (plane[0], plane[1], plane[2])
@@ -557,7 +663,11 @@ def build_substep(model: Model, dt: float,
             center = v_add(
                 xpos[b], m3_apply(Rb[b], tuple(float(v) for v in geom_pos[g]))
             )
-            phi = pdot(center, png) - pdg - float(geom_radius[g])
+            if terrain:
+                png, phi = terrain_ground(gc, plane, center,
+                                          float(geom_radius[g]), zero)
+            else:
+                phi = pdot(center, png) - pdg - float(geom_radius[g])
             pen = _min(_max(zero - phi, 0.0), 0.05)
             active = _where(phi < 0.0, one, zero)
             fn = _min(float(geom_k[g]) * pen, 1e4)
@@ -791,7 +901,8 @@ _FREE_OPS = {"clone", "copy_", "detach", "alias", "view", "expand",
 def count_substep_ops(model: Model, dt: float, with_plane=False,
                       with_payload: bool = False) -> int:
     """Arithmetic operations of one substep for one rollout in the given
-    mode: the plain version is run once on a single lane and every
+    mode (``with_plane="terrain"`` on the model's grid, flat): the plain
+    version is run once on a single lane and every
     elementwise operation it dispatches is counted (transcendentals
     weighted as in ``opendog_tpu/utils/profiling.py``).  The count does not
     depend on the data: both sides of every ``where`` are evaluated."""
@@ -812,8 +923,11 @@ def count_substep_ops(model: Model, dt: float, with_plane=False,
     sub = build_substep(model.to("cpu"), dt, with_plane, with_payload)
     qpos = model.key_qpos[0].detach().cpu().reshape(-1, 1)
     rows = lambda n: tuple(torch.zeros(n, 1)[i] for i in range(n))
-    n_plane = plane_rows(model, with_plane)
-    plane = rows(n_plane) if n_plane else None
+    if with_plane == TERRAIN:  # the model's grid, flat
+        plane = torch.zeros(model.hfield_nrow, model.hfield_ncol)
+    else:
+        n_plane = plane_rows(model, with_plane)
+        plane = rows(n_plane) if n_plane else None
     payload = torch.zeros(1) if with_payload else None
     with _Count() as counter:
         sub(tuple(qpos[i] for i in range(model.nq)), rows(model.nv),

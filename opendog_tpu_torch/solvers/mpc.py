@@ -4,11 +4,14 @@ Port of ``opendog_tpu/solvers/mpc.py`` (``MPCCarry``, ``make_mpc`` and the
 plants of ``_make_plant_step``, lines 33-180): one ``tick`` re-plans with
 the MPPI solver and advances the plant one 50 Hz step of
 ``plant_substeps`` substeps at the model's timestep.  With the kernel
-engine the plant is the substep kernel (K = 1, one launch): the flat
-kernel on flat ground, the per-geom plane kernel on a terrain with
-``terrain_plant="kernel"``.  On a terrain with the default
-``terrain_plant="exact"``, and with the op-graph engine, it is the op-graph
-step ``physics.dynamics.step`` with exact bilinear contact.  ``run`` is a
+engine the plant is one kernel launch (K = 1): the flat kernel on flat
+ground, the per-geom plane kernel on a terrain with
+``terrain_plant="kernel"``, and on a terrain with the default
+``terrain_plant="exact"`` the exact plant kernel on the card (the contact
+of ``physics.dynamics.step``: bilinear heightfield and static boxes at
+every substep).  With the op-graph engine, on the CPU and on a terrain of
+one grid per env, the exact plant is the op-graph step
+``physics.dynamics.step`` itself.  ``run`` is a
 Python loop over ticks.  :func:`graph_tick` replays a tick from a CUDA
 graph (the counterpart of the JAX package's jitted tick), and
 :class:`RealtimeController` (lines 183-327) is the host-side pipelined
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, use_full_fp32
-from ..ops.cuda_step import build_cuda_substep
+from ..ops.cuda_step import ExactPlant, build_cuda_substep
 from ..parallel.collectives import require_capturable
 from ..physics import State, Terrain, dynamics, make_state
 from ..utils.profiling import span
@@ -56,10 +59,29 @@ def _make_plant_step(model, plant_substeps: int, device,
     * ``engine="kernel"`` on a terrain with ``terrain_plant="kernel"``: the
       per-geom plane kernel, each paw on the terrain's tangent plane at its
       own xy, recomputed from the plant state every tick;
-    * otherwise (a terrain with ``"exact"``, or ``engine="ops"``): the
-      op-graph step with exact bilinear contact (``dynamics.step``)."""
-    if engine != "kernel" or (terrain is not None
-                              and terrain_plant == "exact"):
+    * ``engine="kernel"`` on a CUDA device and a terrain of one grid with
+      ``terrain_plant="exact"``: the exact plant kernel
+      (``cuda_step.ExactPlant``), K = 1, one launch: the contact of
+      ``dynamics.step``, bilinear heightfield and static boxes looked up at
+      every substep, for a model without the progressive contact impedance
+      (``geom_imp_dmin``, which only the op-graph step computes);
+    * otherwise (``"exact"`` on the CPU, on a grid per env or with the
+      impedance, or ``engine="ops"``): the op-graph step with exact
+      bilinear contact (``dynamics.step``)."""
+    device = resolve_device(device)
+    exact = terrain is not None and terrain_plant == "exact"
+    if (engine == "kernel" and exact and device.type == "cuda"
+            and terrain.height.dim() == 2 and model.geom_imp_dmin is None):
+        plant = ExactPlant(model, model.timestep, plant_substeps,
+                           terrain.height, device)
+
+        def plant_step_exact(st: State, ctrl: torch.Tensor) -> State:
+            qp, qv = plant(st.qpos[:, None], st.qvel[:, None], ctrl[:, None])
+            t2 = st.time + plant_substeps * float(model.timestep)
+            return State(qpos=qp[:, 0], qvel=qv[:, 0], time=t2)
+
+        return plant_step_exact
+    if engine != "kernel" or exact:
         def plant_step_ops(st: State, ctrl: torch.Tensor) -> State:
             return dynamics.step(model, st, ctrl, terrain,
                                  n_substeps=plant_substeps)[0]
@@ -109,9 +131,10 @@ def make_mpc(
     stacked); without it the carry's generator draws on the device.
 
     With ``terrain`` the rollouts contact its local planes (``plane_mode``,
-    see ``mppi.make_solver``) and the plant is the op-graph step with exact
+    see ``mppi.make_solver``) and the plant has the op-graph step's exact
     bilinear contact (``terrain_plant="exact"``, the default, as in the JAX
-    package) or the per-geom plane kernel (``"kernel"``).  With
+    package: on CUDA the exact plant kernel) or is the per-geom plane
+    kernel (``"kernel"``).  With
     ``config.engine="ops"`` both the rollouts and the plant run the
     op-graph step (see :func:`_make_plant_step`).
 
@@ -335,8 +358,9 @@ class RealtimeController:
     On a terrain the kernel engine's solves use one trunk plane
     (``plane_mode="trunk"``, as the JAX class's solver does), and the
     plants (benchmark mode's internal plant, the compensated solve's
-    roll-forward) are the op-graph step with exact bilinear contact, the
-    JAX class's default ``terrain_plant="exact"``.
+    roll-forward) have the op-graph step's exact bilinear contact, the JAX
+    class's default ``terrain_plant="exact"`` (:func:`_make_plant_step`:
+    on CUDA the exact plant kernel).
 
     ``mesh`` shards each solve's K samples over its ranks
     (``mppi.make_solver(..., mesh=)``), each rank running the same

@@ -20,8 +20,8 @@ and timed over SOLVES solves; then the OpenDOG terrain loops of [terrain]
 (per-geom planes for rollouts and plant) and [terrain-trunk] (one trunk
 plane for the rollouts, per-geom planes for the plant) on the generated
 terrain of seed 0, and [exact-terrain] (bench 2c: one trunk plane for the
-rollouts, the default exact plant, the op-graph step with bilinear
-contact), each warmed up for 5 ticks and timed over TERRAIN_TICKS ticks;
+rollouts, the default exact plant: bilinear contact, on the card the
+exact plant kernel), each warmed up for 5 ticks and timed over TERRAIN_TICKS ticks;
 and the per-geom payload solver of [pergeom-payload] (OpenDOG
 standing on that terrain with 0.5 kg) warmed up for 3 solves and timed
 over SOLVES.  Each is timed by the host clock around work that ends in

@@ -128,6 +128,38 @@ def test_mode_kernel_matches_plain_on_card(cuda_device, robot, K, dt, n,
     assert torch.equal(kp, pp) and torch.equal(kv, pv)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["terrain", "box", "edge"])
+@pytest.mark.parametrize("K", [1, 5])
+def test_exact_plant_matches_plain_on_card(cuda_device, case, K):
+    """The exact plant kernel (``exact_plant``: the terrain ground of
+    ``dynamics.step``, 10 x 2 ms) equals its plain version exactly on the
+    card, as every warp-design kernel does: at the plant's K=1 and across
+    two blocks (K=5), on random OpenDOG states on the generated terrain,
+    over the static box (spheres inside it and beside it) and past the
+    heightfield's clipped edge.  One launch, counted in PLANT_LAUNCHES and
+    not in LAUNCHES."""
+    from opendog_tpu_torch.ops import scalar_core
+    from opendog_tpu_torch.physics import terrain as terrain_lib
+    from chip_smoke import exact_plant_batch
+    m = load_opendog("terrain", device=cuda_device)
+    terr = terrain_lib.generate_terrain(m, torch.Generator().manual_seed(0))
+    qp, qv, ct, heights = (torch.from_numpy(a).to(cuda_device)
+                           for a in exact_plant_batch(m, terr, K, case))
+    key = cuda_step.plant_launch_key(K, 10)
+    before = cuda_step.PLANT_LAUNCHES[key]
+    substep_launches = dict(cuda_step.LAUNCHES)
+    kp, kv = cuda_step.ExactPlant(m, 0.002, 10, heights,
+                                  cuda_device)(qp, qv, ct)
+    pp, pv = cuda_step.build_plain_substep(
+        m, 0.002, 10, scalar_core.TERRAIN)(qp, qv, ct, heights)
+    torch.cuda.synchronize()
+    assert cuda_step.PLANT_LAUNCHES[key] == before + 1
+    assert dict(cuda_step.LAUNCHES) == substep_launches
+    assert torch.isfinite(kp).all() and torch.isfinite(kv).all()
+    assert torch.equal(kp, pp) and torch.equal(kv, pv)
+
+
 def _bench_suite():
     """scripts/torch_bench_suite.py as a module (it imports no JAX)."""
     import importlib.util
@@ -283,8 +315,9 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     """The make_mpc tick replayed from a CUDA graph equals the eager tick
     bit for bit on the same normals from the same carry (it replays the
     same kernels), and each replay counts one tick's launches: 25 rollout
-    launches and one plant launch, or none on the exact plant (the
-    op-graph step, bench 2c: trunk-plane rollouts)."""
+    launches and one plant launch; on the exact plant (bench 2c:
+    trunk-plane rollouts) the plant's launch is the exact plant kernel's,
+    one a tick in PLANT_LAUNCHES."""
     from opendog_tpu_torch.physics import make_state
     from opendog_tpu_torch.solvers import graph_tick, make_mpc
     if path == "flat":
@@ -310,11 +343,16 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     rollout = (False if path == "flat" else
                "per_geom" if path == "per_geom" else True)
     want_launches = {cuda_step.launch_key(256, 2, rollout): 25}
-    if path != "exact":
+    want_plant = {}
+    if path == "exact":
+        want_plant[cuda_step.plant_launch_key(1, 10)] = 1
+    else:
         want_launches[cuda_step.launch_key(
             1, 10, False if path == "flat" else "per_geom")] = 1
     assert dict(gtick.graph.launches) == want_launches
+    assert dict(gtick.graph.count_of(cuda_step.PLANT_LAUNCHES)) == want_plant
     cuda_step.LAUNCHES.clear()
+    cuda_step.PLANT_LAUNCHES.clear()
     carry = carry0
     for n, want in zip(normals, eager):
         carry, out = gtick(carry, n)
@@ -324,6 +362,8 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     torch.cuda.synchronize()
     assert dict(cuda_step.LAUNCHES) == {
         k: v * len(normals) for k, v in gtick.graph.launches.items()}
+    assert dict(cuda_step.PLANT_LAUNCHES) == {
+        k: v * len(normals) for k, v in want_plant.items()}
 
 
 @pytest.mark.gpu
