@@ -176,7 +176,8 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
         ctrl_rows = candidates.permute(1, 2, 0).contiguous()  # (H, nu, L)
         extra = {}
         if terrain is not None:
-            extra["plane"] = local_planes(qpos)
+            with span("mppi.planes"):
+                extra["plane"] = local_planes(qpos)
         if with_payload:
             extra["payload"] = lanes(payload).reshape(1, L).contiguous()
         prev_ctrl = candidates[:, 0]

@@ -97,6 +97,7 @@ def test_kernel_rejects_cpu_tensors(cuda_device):
     ("go1", 256, 0.01, 2, False, True),            # K2: payload MPPI
     ("opendog", 256, 0.01, 2, True, False),        # K3: trunk-plane MPPI
     ("opendog", 256, 0.01, 2, "per_geom", False),  # K4: per-geom MPPI
+    ("opendog", 4096, 0.01, 2, "per_geom", False),  # K4: 4096 rollouts
     ("opendog", 1, 0.002, 10, "per_geom", False),  # K4: terrain plant
     ("opendog", 4096, 0.002, 10, True, True),      # K2 + K3: batch
     ("opendog", 256, 0.01, 2, "per_geom", True),   # K2 + K4: per-geom
@@ -445,11 +446,11 @@ def _node_types(graph):
 @pytest.mark.parametrize("path", ["flat", "exact"])
 def test_spans_in_a_replayed_tick(cuda_device, path):
     """The make_mpc tick captured with the spans on and off (Go1 flat; the
-    exact terrain plant): the same kernel nodes, two event-record nodes
-    more per stage span, the same bits on every replay; every stage reads a
-    positive device time on every read replay (the first and every
-    READ_EVERY-th), and the stage medians add up to the graph's device span
-    within 5%."""
+    exact terrain plant, whose rollouts also open ``mppi.planes`` inside
+    ``mppi.rollout``): the same kernel nodes, two event-record nodes more
+    per span, the same bits on every replay; every span reads a positive
+    device time on every read replay (the first and every READ_EVERY-th),
+    and the stage medians add up to the graph's device span within 5%."""
     from opendog_tpu_torch.physics import make_state
     from opendog_tpu_torch.solvers import graph_tick, make_mpc
     from opendog_tpu_torch.solvers.graph import READ_EVERY
@@ -465,6 +466,7 @@ def test_spans_in_a_replayed_tick(cuda_device, path):
     carry0 = init(None, make_state(m, "home"))
     normals = _normals(2 * READ_EVERY + 1, cfg, m.nu, cuda_device)
     stages = {"mppi.sample", "mppi.rollout", "mppi.update", "mpc.plant"}
+    named = stages | ({"mppi.planes"} if path == "exact" else set())
     was = profiling.set_spans(False)
     try:
         g_off = graph_tick(tick, carry0, normals[0])
@@ -472,12 +474,12 @@ def test_spans_in_a_replayed_tick(cuda_device, path):
         profiling.SPANS.clear()
         g_on = graph_tick(tick, carry0, normals[0])
         assert g_off.graph.pairs == ()
-        assert {name for name, _, _ in g_on.graph.pairs} == stages
-        assert len(g_on.graph.pairs) == len(stages)
+        assert {name for name, _, _ in g_on.graph.pairs} == named
+        assert len(g_on.graph.pairs) == len(named)
         on, off = (_node_types(g.graph.graph) for g in (g_on, g_off))
         assert on[NODE_KERNEL] == off[NODE_KERNEL] > 0
         assert on[NODE_EVENT_RECORD] - off[NODE_EVENT_RECORD] == 2 * len(
-            stages)
+            named)
         c_on = c_off = carry0
         for n in normals:
             profiling.set_spans(True)
@@ -492,7 +494,7 @@ def test_spans_in_a_replayed_tick(cuda_device, path):
         profiling.set_spans(was)
     store = profiling.SPANS
     med = {}
-    for name in stages | {"graph.replay"}:
+    for name in named | {"graph.replay"}:
         ms = [v for _, v in store.device(name)]
         assert len(ms) == 3 and min(ms) > 0, (name, ms)
         med[name] = float(np.median(ms))
