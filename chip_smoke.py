@@ -8,8 +8,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
   build    - builds the substep kernels (csrc/, one nvcc call: the six
              entry points flat, payload, plane, pergeom, plane_payload and
              pergeom_payload, all one warp per rollout, and the batch's
-             plane_payload kernel for models of at most 32 spheres, and
-             the exact plant, exact_plant) for
+             plane_payload kernel for models of at most 32 spheres, the
+             exact plant, exact_plant, and the rollouts' tracking cost,
+             rollout_tracking_cost) for
              sm_90a and prints the ptxas report of each and, for each entry
              point at its paths' model, the rollouts and dynamic shared
              memory per block and the blocks and warps resident per SM;
@@ -37,6 +38,14 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              states on the terrain, over the box and past the grid's edge,
              equal to its plain version; and, check only, all six at a
              ragged K=257 x 2 and flat at bench 5's OpenDOG plant K=8 x 10;
+             the tracking-cost kernel (rollout_tracking_cost) against the
+             op path it replaces (standing_cost's closure on the carry,
+             times the discount, added up) over 25 control steps of the
+             substep kernel, every step's cost and the total bit for bit,
+             at the lane counts its paths launch (256 after K3 and after K4
+             on the terrain, bench 5's expert 8 x 64 on OpenDOG flat) and,
+             check only, [multidev]'s 64 a rank, the benchmark's per-geom
+             4096, Go1 (12 controls) at 256 and a ragged 257;
   main     - the Go1 flat-ground MPPI trot loop of bench.py (K=256, H=25,
              2 x 10 ms substeps, plant 10 x 2 ms per 50 Hz tick) through
              make_mpc: the tick captured in a CUDA graph (graph_tick) must
@@ -44,8 +53,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              for 4 ticks (ctrl, qpos, qvel, nominal); then 150 ticks eager
              and 150 replayed (250 before the PPO phases), each from generator seed 0: trunk in (0.12,
              0.5) m, finite, forward more than 0.5 m, 25 + 1 flat launches
-             per tick (counted per replay on the graph), ms/tick of both
-             side by side;
+             per tick (counted per replay on the graph) and no launch of
+             the tracking-cost kernel (the trot cost runs its torch ops),
+             ms/tick of both side by side;
   terrain  - OpenDOG terrain MPC with per-geom planes on both sides (bench
              2c_pergeom: K=256, H=25, 2 x 10 ms, sigma 0.08; per-geom
              kernel plant) on a generated terrain, eager and graph as in
@@ -53,9 +63,10 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              trunk above the ground under it
              in (0.03, 0.21) m at every tick and in (0.03, 0.15) m once the
              drop from the keyframe is over, 25 + 1 pergeom launches per
-             tick;
+             tick and 25 of the tracking-cost kernel (COST_LAUNCHES, L=256;
+             per replay on the graph too);
   terrain-trunk - the same with one trunk plane for the rollouts, 50 ticks,
-             25 plane + 1 pergeom launches per tick;
+             25 plane + 1 pergeom launches and 25 cost launches per tick;
   ops-check - the op-graph physics step (dynamics.step) on the card against
              the flat kernel on random Go1 states (K=256, one 2 ms substep;
              the cross-engine tolerance 1e-4 qpos, 5e-3 qvel) and against
@@ -66,8 +77,8 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the contact of the op-graph step, bilinear heightfield and
              static box, 10 x 2 ms), eager and graph as in main, as
              many ticks as terrain, the height bands of terrain, 25 plane
-             launches and one exact plant launch (PLANT_LAUNCHES) per tick
-             of the graph; then terrain's deviation
+             launches, 25 cost launches and one exact plant launch
+             (PLANT_LAUNCHES) per tick of the graph; then terrain's deviation
              check: final_dev_vs_exact_plant_m, the distance between the
              trunk positions that the per-geom kernel-plant loop and this
              loop reach from the same start on the same normals in as many
@@ -91,7 +102,7 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              generated terrain with 0.5 kg: 0 kg equals the per-geom solver
              to 1e-6, 0.5 kg changes best_cost; graph vs eager as in
              payload; 10 solves each: finite, 25 pergeom_payload launches
-             per solve;
+             and 25 cost launches per solve;
   ilqr     - bench 3 (scripts/bench_suite.py:305-326) at full width: Go1
              flat, standing_cost(0.265), whole-body iLQR (make_ilqr_tracker:
              horizon 50, 2 x 10 ms substeps, 3 iterations; 50 tracked ticks
@@ -154,8 +165,9 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              the same gates;
   distill-bench5 - scripts/bench_suite.py:578-622 (5_distill_round):
              OpenDOG standing, S=8, K=64, H=10, the 64-64 student, 50
-             ticks; a capture round, then one timed round_fn and 100 eval
-             ticks; prints the bench's fields;
+             ticks; a capture round, then one timed round_fn (10 cost
+             launches a tick, L=512) and 100 eval ticks; prints the bench's
+             fields;
   student  - the committed runs/distill_go1 and runs/distill_cmd students,
              read without flax (rl/student_io.py) and deployed by
              load_student on the flat plant kernel (K=8 x10) for 100 ticks,
@@ -324,7 +336,10 @@ Phases, each of which raises on failure (exit code != 0, no "ok" line):
              exact-terrain loops, eager and graph;
   timing   - CUDA-event times of every kernel at each of its path shapes,
              beside its plain version (one call; the check phase's call is
-             its warm-up) and its bound.
+             its warm-up) and its bound; the tracking-cost kernel's at 256
+             and 512 lanes eager and replayed (25 launches a graph), beside
+             the op path's step eager and replayed, with its bound
+             (utils.profiling.tracking_cost_bound).
 The last lines are the wall time, the card's name and power limit, one JSON
 object of kernel records, and {"ok": true, "device": {...}}.
 """
@@ -373,6 +388,8 @@ DROP_BAND = (0.03, 0.21)
 STAND_BAND = (0.03, 0.15)
 MIN_FINAL_X = 0.5      # m trotted forward by the flat loop
 CHECK_TOL = {"qpos": 1e-4, "qvel": 1e-3}  # kernel vs plain, max abs error
+COST_STEPS = 25        # [check] control steps of the tracking-cost kernel
+COST_GAMMA = 0.9       # and their discount
 ROLLOUT = dict(K=256, dt=0.01, n=2)
 RAGGED = dict(K=257, dt=0.01, n=2)  # one rollout past the MPPI paths' K
 PLANT = dict(K=1, dt=0.002, n=10)
@@ -666,6 +683,7 @@ class Smoke:
         self.terrain = terrain_lib.generate_terrain(
             self.dog_t, torch.Generator().manual_seed(TERRAIN_SEED))
         self.records = {}
+        self.cost_records = {}  # the tracking-cost kernel's, by lane count
         self.pairs = {}  # eager and graph ms per path, for the summary
 
     # -- check ------------------------------------------------------------
@@ -807,6 +825,106 @@ class Smoke:
                    terrain_batch(dog_t, self.terrain, Kr)
                    + random_modes(dog_t, Kr, False, True)[1:], keep=False)
         self.check_exact_plant()
+        # the rollouts' tracking cost (standing_cost) at every lane count
+        # that a path launches it: the terrain loops and the per-geom
+        # payload solves (256 lanes after K3 and after K4) and bench 5's
+        # expert (8 x 64 lanes, OpenDOG flat); check only: [multidev]'s
+        # multi-process MPPI (64 a rank; its rank counts the substep
+        # launches alone), the benchmark's per-geom cell (4096), Go1
+        # (nu = 12, no path of the smoke) and a ragged 257
+        self.check_cost("terrain", dog_t, K, True)
+        self.check_cost("terrain pergeom", dog_t, K, "per_geom", keep=False)
+        self.check_cost("bench5 expert", dog, BENCH5_EXPERT["K"], False)
+        self.check_cost("multidev rollout", dog, MULTIDEV_ROLLOUT["K"],
+                        False, keep=False)
+        self.check_cost("pergeom k4096", dog_t, 4096, "per_geom", keep=False)
+        self.check_cost("go1", go1, K, False, height=0.265, keep=False)
+        self.check_cost("ragged", dog_t, Kr, True, keep=False)
+        self.cs.COST_LAUNCHES.clear()
+
+    def check_cost(self, label, model, K, with_plane, height=0.0694,
+                   keep=True):
+        """The rollouts' tracking-cost kernel (rollout_tracking_cost)
+        against the op path it replaces (the standing cost's closure on the
+        carry, times the discount, added to the total) at K lanes over
+        COST_STEPS control steps of the rollouts' substep kernel (K1 flat,
+        K3 on a trunk plane, K4 per geom on the generated terrain) from the
+        home keyframe on the ground, its joints perturbed by N(0, 0.03)
+        rad, ``height`` the standing cost's target above the ground there:
+        every step's cost and the discounted total bit for bit.  Keeps the
+        last step's inputs for timing unless ``keep`` is False."""
+        torch, dev, cs = self.torch, self.dev, self.cs
+        from opendog_tpu_torch.physics import State, dynamics
+        from opendog_tpu_torch.solvers import costs
+        gen = torch.Generator(device=dev).manual_seed(5)
+        qpos = model.key_qpos[0][None].repeat(K, 1)
+        h0, plane = 0.0, {}
+        if with_plane:
+            terr = self.terrain.to(dev)
+            h0 = float(dynamics._terrain_height_normal(
+                model, terr, torch.zeros(1, 2, device=dev))[0][0])
+        qpos[:, 2] += h0
+        qpos[:, 7:] += 0.03 * torch.randn(K, model.nq - 7, device=dev,
+                                          generator=gen)
+        if with_plane == "per_geom":
+            rows = dynamics.geom_local_planes(model, terr, qpos).reshape(K,
+                                                                         -1)
+            plane = dict(plane=rows.T.contiguous())
+        elif with_plane:
+            h, n = dynamics._terrain_height_normal(model, terr, qpos[:, :2])
+            p0 = torch.stack([qpos[:, 0], qpos[:, 1], h], dim=-1)
+            plane = dict(plane=torch.cat(
+                [n, torch.sum(n * p0, dim=-1)[:, None]], dim=-1).T
+                .contiguous())
+        cost = costs.standing_cost(model, height + h0, model.key_qpos[0, 7:])
+        kern = cs.TrackingCostKernel(model, *cost.tracking, dev)
+        rng = model.actuator_ctrlrange
+        cand = torch.clamp(model.key_ctrl[0] + 0.08 * torch.randn(
+            K, COST_STEPS, model.nu, device=dev, generator=gen), rng[:, 0],
+            rng[:, 1])
+        ctrl_rows = cand.permute(1, 2, 0).contiguous()
+        psub = cs.build_cuda_substep(model, 0.01, 2, device=dev,
+                                     with_plane=with_plane)
+        qp = qpos.T.contiguous()
+        qv = torch.zeros(model.nv, K, device=dev)
+        t = torch.zeros(K, device=dev)
+        want = got = None
+        disc, step_gap = 1.0, 0.0
+        for h in range(COST_STEPS):
+            qp, qv = psub(qp, qv, ctrl_rows[h], **plane)
+            st = State(qpos=qp.T, qvel=qv.T, time=t)
+            args = (qp, qv, ctrl_rows[h], ctrl_rows[max(h - 1, 0)], disc)
+            op_args = (st, cand[:, h], cand[:, max(h - 1, 0)])
+            c = cost(*op_args) * disc
+            one = kern(*args)
+            if not torch.equal(one, c):
+                step_gap = max(step_gap, (one - c).abs().nan_to_num(
+                    nan=float("inf")).max().item())
+            want = c if want is None else want + c
+            got = kern(*args, got)
+            disc = disc * COST_GAMMA
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(want).all())
+        total_gap = (0.0 if torch.equal(got, want) else (got - want).abs()
+                     .nan_to_num(nan=float("inf")).max().item())
+        ground = ("per-geom planes" if with_plane == "per_geom"
+                  else "a trunk plane" if with_plane else "flat")
+        log(f"[check] cost {label} L={K} ({model.nu} controls, {ground}), "
+            f"{COST_STEPS} steps: kernel vs op path max abs gap, a step "
+            f"{step_gap:.3e}, the total {total_gap:.3e} (must be equal bit "
+            f"for bit); op-path total finite {finite}")
+        if step_gap or total_gap or not finite:
+            raise RuntimeError(f"[check] cost {label}: the kernel differs "
+                               f"from the op path (a step {step_gap}, the "
+                               f"total {total_gap}) or the total is not "
+                               f"finite ({finite})")
+        if not keep:
+            return
+        self.cost_records[label] = dict(
+            model=model, K=K, err=0.0, launches=0,
+            key=cs.cost_launch_key(K),
+            kernel=lambda: kern(*args, got),
+            op=lambda: want + cost(*op_args) * args[-1])
 
     def check_exact_plant(self):
         """The exact plant kernel against its plain version at the MPC
@@ -837,22 +955,29 @@ class Smoke:
         cs.PLANT_LAUNCHES.clear()
 
     # -- paths ------------------------------------------------------------
-    def counted(self, label, run, want, rows=None):
+    def counted(self, label, run, want, rows=None, want_cost=None):
         """Runs ``run()`` with every launch count set to 0 just before and
-        read just after; the counts must equal ``want`` exactly.  The
+        read just after; the counts must equal ``want`` exactly, and the
+        tracking-cost kernel's ``want_cost`` where it is given.  The
         launches go to the kernel records of their shape, or with ``rows``
         to the named records alone (the counter keys by shape, not model:
         the bridge's OpenDOG rows share the Go1 rows' shapes)."""
         cs = self.cs
         cs.LAUNCHES.clear()
+        cs.COST_LAUNCHES.clear()
         out = run()
         self.torch.cuda.synchronize()
-        launches = dict(cs.LAUNCHES)
-        log(f"[{label}] kernel launches: {launches}")
+        launches, cost = dict(cs.LAUNCHES), dict(cs.COST_LAUNCHES)
+        log(f"[{label}] kernel launches: {launches}; cost kernel: {cost}")
         if launches != want:
             raise RuntimeError(f"[{label}] kernel launches {launches} != "
                                f"{want}")
+        if want_cost is not None and cost != want_cost:
+            raise RuntimeError(f"[{label}] cost kernel launches {cost} != "
+                               f"{want_cost}")
         self.attribute(launches, rows)
+        for rec in self.cost_records.values():
+            rec["launches"] += cost.get(rec["key"], 0)
         return out
 
     def attribute(self, launches, rows=None):
@@ -890,12 +1015,13 @@ class Smoke:
             raise RuntimeError(f"[{label}] the graph differs from the eager "
                                f"path: max abs {differ}")
 
-    def tick_pair(self, label, tick, init, s0, cfg, nu, run_loop, want):
+    def tick_pair(self, label, tick, init, s0, cfg, nu, run_loop, want,
+                  want_cost):
         """The eager tick and its CUDA graph (captured from the loop's first
         carry): bit for bit on injected normals, then ``run_loop`` on each
-        from the same generator seed, with the launches counted per replay.
-        Returns {side: (wall, loop result, last carry)} and the graphed
-        tick."""
+        from the same generator seed, with the launches counted per replay
+        (the cost kernel's too).  Returns {side: (wall, loop result, last
+        carry)} and the graphed tick."""
         torch, dev = self.torch, self.dev
         from opendog_tpu_torch.solvers import graph_tick
         n = (cfg.num_samples, cfg.horizon, nu)
@@ -919,7 +1045,8 @@ class Smoke:
         for side, fn in (("eager", tick), ("graph", gtick)):
             carry = init(torch.Generator(device=dev).manual_seed(0), s0)
             out[side] = self.counted(f"{label} {side}",
-                                     lambda: run_loop(fn, carry), want)
+                                     lambda: run_loop(fn, carry), want,
+                                     want_cost=want_cost)
         return out, gtick
 
     def flat_loop(self):
@@ -956,7 +1083,7 @@ class Smoke:
                 cs.launch_key(PLANT["K"], PLANT["n"]): TICKS}
         res, gtick = self.tick_pair("main", tick, init,
                                     make_state(model, "home"), cfg, model.nu,
-                                    run, want)
+                                    run, want, {})  # the trot cost: its ops
         for side, (wall, zs, finite, out, carry) in res.items():
             z = torch.stack(zs).cpu().numpy()
             all_finite = bool(torch.stack(finite).all().item())
@@ -1037,8 +1164,17 @@ class Smoke:
                 cfg.horizon * ticks}
         if terrain_plant == "kernel":  # the exact plant counts apart
             want[cs.launch_key(PLANT["K"], PLANT["n"], "per_geom")] = ticks
+        # the standing cost: one launch of its kernel a control step
+        cost_key = cs.cost_launch_key(cfg.num_samples)
         res, gtick = self.tick_pair(label, tick, init, s0, cfg, model.nu,
-                                    run, want)
+                                    run, want,
+                                    {cost_key: cfg.horizon * ticks})
+        per_replay = dict(gtick.graph.count_of(cs.COST_LAUNCHES))
+        log(f"[{label}] cost kernel launches per replay: {per_replay}")
+        if per_replay != {cost_key: cfg.horizon}:
+            raise RuntimeError(f"[{label}] cost kernel launches per replay "
+                               f"{per_replay} != {{{cost_key!r}: "
+                               f"{cfg.horizon}}}")
         plant = dict(gtick.graph.count_of(cs.PLANT_LAUNCHES))
         want_plant = ({cs.plant_launch_key(PLANT["K"], PLANT["n"]): 1}
                       if terrain_plant == "exact" else {})
@@ -1436,11 +1572,12 @@ class Smoke:
                                        unit="cycle")
         return fields
 
-    def solve_pair(self, label, pay, st, ms0, payload, cfg, n_solves, want):
+    def solve_pair(self, label, pay, st, ms0, payload, cfg, n_solves, want,
+                   want_cost):
         """A payload solver and its CUDA graph: bit for bit on injected
         normals, then ``n_solves`` solves on each from the same generator
-        seed with the launches counted per replay; the solve outputs must
-        be finite."""
+        seed with the launches counted per replay (the cost kernel's too);
+        the solve outputs must be finite."""
         torch, dev = self.torch, self.dev
         from opendog_tpu_torch.solvers import graph_solve
         n = (cfg.num_samples,) + tuple(ms0.nominal.shape)
@@ -1472,7 +1609,8 @@ class Smoke:
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0, torch.stack(ctrls), stats
 
-            res[side] = self.counted(f"{label} {side}", run, want)
+            res[side] = self.counted(f"{label} {side}", run, want,
+                                     want_cost=want_cost)
             wall, ctrls, stats = res[side]
             finite = bool(torch.isfinite(ctrls).all().item()) and all(
                 bool(torch.isfinite(v).all().item()) for v in stats.values())
@@ -1520,7 +1658,7 @@ class Smoke:
         want = {cs.launch_key(ROLLOUT["K"], ROLLOUT["n"], False, True):
                 cfg.horizon * PAYLOAD_SOLVES}
         self.solve_pair("payload", pay, st, ms0, 1.5, cfg, PAYLOAD_SOLVES,
-                        want)
+                        want, {})  # the trot cost: its ops
 
     def pergeom_payload_solves(self):
         """Per-geom terrain MPPI of OpenDOG standing on the generated
@@ -1564,7 +1702,9 @@ class Smoke:
         want = {cs.launch_key(cfg.num_samples, cfg.n_substeps, "per_geom",
                               True): cfg.horizon * PERGEOM_PAYLOAD_SOLVES}
         self.solve_pair("pergeom-payload", pay, st, ms0, PERGEOM_PAYLOAD_KG,
-                        cfg, PERGEOM_PAYLOAD_SOLVES, want)
+                        cfg, PERGEOM_PAYLOAD_SOLVES, want,
+                        {cs.cost_launch_key(cfg.num_samples):
+                         cfg.horizon * PERGEOM_PAYLOAD_SOLVES})
 
     def realtime(self, flat):
         """bench.py:104-156 on the port, through bench_torch.py's loop: the
@@ -1958,8 +2098,11 @@ class Smoke:
             loss = float(out[2]["distill_loss"])
             return time.perf_counter() - t0, out, loss
 
+        # the standing cost: one launch of its kernel a rollout step
+        want_cost = {cs.cost_launch_key(S * BENCH5["K"]):
+                     BENCH5["H"] * dcfg.rollout_ticks}
         dt, (dstate, plants, _), loss = self.counted("distill-bench5", run,
-                                                     want)
+                                                     want, want_cost=want_cost)
         ev = d.eval_fn(dstate, plants, BENCH5["eval_ticks"])
         zs = ev["qpos_traj"][:, :, 2]
         fields = dict(
@@ -3585,9 +3728,9 @@ class Smoke:
 
     # -- timing -----------------------------------------------------------
     def timing(self):
-        from opendog_tpu_torch.utils.profiling import (CHIP_PEAKS, event_ms,
-                                                       substep_bound,
-                                                       substep_row)
+        from opendog_tpu_torch.utils.profiling import (
+            CHIP_PEAKS, cost_row, event_ms, substep_bound, substep_row,
+            tracking_cost_bound)
         peak_flops = CHIP_PEAKS["h100"]["fp32_flops"]
         peak_bytes = CHIP_PEAKS["h100"]["hbm_bytes"]
         kernels = []
@@ -3616,7 +3759,30 @@ class Smoke:
                 f"{entry} ({label}: K={K}, {n} substeps)",
                 rec["launches"], rec["err"], ms, plain_ms, bound),
                 design=design))
-        for label, rec in self.records.items():
+        graphed = script_module("torch_exact_plant").graphed
+        for label, rec in self.cost_records.items():
+            K, model = rec["K"], rec["model"]
+            ms = event_ms(rec["kernel"], 200)
+            op_ms = event_ms(rec["op"], 200)
+            # replayed as the tick replays them: COST_STEPS launches a graph
+            replayed_ms = graphed(self.torch, lambda: [
+                rec["kernel"]() for _ in range(COST_STEPS)], 200) / COST_STEPS
+            op_replayed_ms = graphed(self.torch, rec["op"], 200)
+            bound = tracking_cost_bound(model, K)
+            bound_ms, bound_by, ops, nbytes = bound
+            log(f"[timing] cost {label} ({self.cs.ROLLOUT_COST}) L={K}: "
+                f"kernel {1e3 * ms:.2f} us eager, {1e3 * replayed_ms:.2f} us "
+                f"replayed; op path {1e3 * op_ms:.1f} us eager, "
+                f"{1e3 * op_replayed_ms:.1f} us replayed; bound "
+                f"{1e3 * bound_ms:.4f} us by {bound_by} ({ops} ops vs "
+                f"{nbytes} B; {100 * bound_ms / replayed_ms:.3f}% of bound "
+                f"replayed); launches on the paths {rec['launches']}")
+            kernels.append(dict(cost_row(
+                f"{self.cs.ROLLOUT_COST} ({label}: L={K})", rec["launches"],
+                rec["err"], ms, op_ms, bound), replayed_ms=replayed_ms,
+                plain_replayed_ms=op_replayed_ms))
+        for label, rec in (*self.records.items(),
+                           *self.cost_records.items()):
             if rec["launches"] < 1:
                 raise RuntimeError(f"[timing] {label}: no path launched "
                                    f"{rec['key']}")
@@ -3894,7 +4060,8 @@ def main(argv=None):
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "stack", "Compiling")):
             log(f"[build] {line.strip()}")
-    for name in (*cuda_step.KERNEL_NAMES.values(), cuda_step.EXACT_PLANT):
+    for name in (*cuda_step.KERNEL_NAMES.values(), cuda_step.EXACT_PLANT,
+                 cuda_step.ROLLOUT_COST):
         if f"'{name}'" not in built.log:
             raise RuntimeError(f"[build] no ptxas report of {name}")
     smoke = Smoke(torch, dev)

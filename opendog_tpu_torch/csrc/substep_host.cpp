@@ -3,8 +3,9 @@
 // workspace size class that they build, and the serial substep sc_substep,
 // which no kernel runs: it is the oracle that the tests hold the warp design
 // to, bit for bit, and both are compared with the plain version; the same
-// for the exact plant's terrain ground (exact_plant_host).  No entry point
-// of the package reaches it.
+// for the exact plant's terrain ground (exact_plant_host) and the rollouts'
+// tracking cost (tracking_cost_host).  No entry point of the package
+// reaches it.
 #include <math.h>
 #include <stddef.h>
 
@@ -12,6 +13,7 @@
 
 #include "substep_core.cuh"
 #include "substep_warp.cuh"
+#include "tracking_cost.cuh"
 
 extern "C" int substep_model_size() { return (int)sizeof(SubstepModel); }
 
@@ -174,5 +176,20 @@ extern "C" int exact_plant_ground_host(const SubstepGround* g,
     sc_terrain_ground(*g, heights, c, radius[k], n, phi_out + k);
     for (int i = 0; i < 3; ++i) n_out[i * K + k] = n[i];
   }
+  return 0;
+}
+
+extern "C" int tracking_cost_size() { return (int)sizeof(TrackingCost); }
+
+// The rollouts' tracking cost on the host, what rollout_tracking_cost adds
+// on the card: total[l] = c * disc (accumulate == 0) or total[l] + c * disc
+// for each of the L lanes.  Returns 1 for a bad table.
+extern "C" int tracking_cost_host(const TrackingCost* p, const float* qpos,
+                                  const float* qvel, const float* ctrl,
+                                  const float* prev, float* total, int L,
+                                  float disc, int accumulate) {
+  if (p->magic != TC_MAGIC) return 1;
+  for (int l = 0; l < L; ++l)
+    tc_add_step(*p, qpos, qvel, ctrl, prev, total, L, l, disc, accumulate);
   return 0;
 }

@@ -62,10 +62,19 @@
 // memory.  It is the MPC plant on a terrain (K = 1, all the substeps of a
 // tick in one launch), not a rollout kernel: its entry point is named
 // outside substep_*, and its launches are counted apart from theirs.
+//
+// rollout_tracking_cost is the MPPI rollouts' tracking cost
+// (tracking_cost.cuh), one launch after each control step's substep
+// launch: one thread a lane, 128 lanes a block, every row read coalesced.
+// It moves 136 B a lane (OpenDOG) and does ~110 operations, so a launch is
+// bound by its latency, not by the card: about 4 us replayed from a CUDA
+// graph at 256 and at 4,096 lanes on an H100 (PERF.md).  Also named outside
+// substep_*.
 #include <cuda_runtime.h>
 
 #include "substep_core.cuh"
 #include "substep_warp.cuh"
+#include "tracking_cost.cuh"
 
 // Rollouts (warps) per block, of 1, 2, 4 and 8 on an H100 (PERF.md,
 // measured with scripts/torch_warp_sweep.py, which overrides both constants
@@ -336,5 +345,45 @@ extern "C" int exact_plant_launch(const void* model, const void* ground,
                 (cudaStream_t)stream>>>(
       (const SubstepModel*)model, (const SubstepGround*)ground, heights, qpos,
       qvel, ctrl, qpos_out, qvel_out, K, n_substeps);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the rollouts' tracking cost
+// ---------------------------------------------------------------------------
+
+#define TC_THREADS 128
+
+// The cost's table travels by value, in the launch's parameters (a CUDA
+// graph keeps it with the node), as does the step's discount.
+extern "C" __global__ void __launch_bounds__(TC_THREADS)
+    rollout_tracking_cost(const TrackingCost p,
+                          const float* __restrict__ qpos,
+                          const float* __restrict__ qvel,
+                          const float* __restrict__ ctrl,
+                          const float* __restrict__ prev,
+                          float* __restrict__ total, int L, float disc,
+                          int accumulate) {
+  const int l = blockIdx.x * TC_THREADS + threadIdx.x;
+  if (l >= L) return;
+  tc_add_step(p, qpos, qvel, ctrl, prev, total, L, l, disc, accumulate);
+}
+
+extern "C" int tracking_cost_size() { return (int)sizeof(TrackingCost); }
+
+// Adds one control step's discounted cost of L lanes into `total` (L,) on
+// `stream` (writes it at the first step, accumulate == 0) and returns
+// cudaGetLastError() (0 on success); does not synchronise.  `p` is the
+// host's table; qpos (nq, L), qvel (nv, L), ctrl and prev (nu, L) on the
+// device.
+extern "C" int tracking_cost_launch(const TrackingCost* p, const float* qpos,
+                                    const float* qvel, const float* ctrl,
+                                    const float* prev, float* total, int L,
+                                    float disc, int accumulate,
+                                    void* stream) {
+  if (p->magic != TC_MAGIC) return (int)cudaErrorInvalidValue;
+  const int grid = (L + TC_THREADS - 1) / TC_THREADS;
+  rollout_tracking_cost<<<grid, TC_THREADS, 0, (cudaStream_t)stream>>>(
+      *p, qpos, qvel, ctrl, prev, total, L, disc, accumulate);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,12 @@ the current stream; a step bound to the CPU runs the plain PyTorch version
 same ``.cu`` file, the warp design on the ground of ``dynamics.step``: the
 bilinear heightfield and the model's static boxes looked up under every
 sphere at every substep); its launches go to :data:`PLANT_LAUNCHES`.
+
+:class:`TrackingCostKernel` is the MPPI rollouts' tracking cost
+(``rollout_tracking_cost``, ``csrc/tracking_cost.cuh``): one launch a
+control step adds every lane's discounted step cost of
+``solvers.costs.tracking_cost`` into the running total; its launches go to
+:data:`COST_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -65,6 +71,10 @@ LAUNCHES: collections.Counter = profiling.counter()
 # counter of its own, so that LAUNCHES holds the rollout kernels' alone.
 EXACT_PLANT = "exact_plant"
 PLANT_LAUNCHES: collections.Counter = profiling.counter()
+# Launches of the rollouts' tracking cost, keyed "tracking_cost L=256": one
+# a control step of a solve whose step cost is ``costs.tracking_cost``'s.
+ROLLOUT_COST = "rollout_tracking_cost"
+COST_LAUNCHES: collections.Counter = profiling.counter()
 
 
 def kernel_name(with_plane=False, with_payload: bool = False) -> str:
@@ -81,21 +91,31 @@ def launch_key(K: int, n_substeps: int, with_plane=False,
 
 
 # ---------------------------------------------------------------------------
-# the model table, laid out as csrc/substep_core.cuh declares it
+# the tables, laid out as csrc/substep_core.cuh and csrc/tracking_cost.cuh
+# declare them
 # ---------------------------------------------------------------------------
+
+# field list -> (header, structure)
+_TABLES = {"SUBSTEP_MODEL_FIELDS": ("substep_core.cuh", "SubstepModel"),
+           "SUBSTEP_GROUND_FIELDS": ("substep_core.cuh", "SubstepGround"),
+           "TRACKING_COST_FIELDS": ("tracking_cost.cuh", "TrackingCost")}
 
 
 @functools.lru_cache(maxsize=None)
 def table_layout(fields_macro: str = "SUBSTEP_MODEL_FIELDS"
                  ) -> Tuple[Dict[str, int], type]:
     """The compile-time constants and the ctypes mirror of ``SubstepModel``
-    (or, with ``"SUBSTEP_GROUND_FIELDS"``, of ``SubstepGround``), read from
-    the field list of ``csrc/substep_core.cuh`` (the one statement of the
-    layout)."""
-    with open(os.path.join(build.CSRC, "substep_core.cuh")) as f:
-        src = f.read()
+    (or, with ``"SUBSTEP_GROUND_FIELDS"``, of ``SubstepGround``; with
+    ``"TRACKING_COST_FIELDS"``, of ``TrackingCost``), read from the field
+    list of its header (the one statement of the layout)."""
+    header, struct = _TABLES[fields_macro]
+    src = ""
+    for path in dict.fromkeys(("substep_core.cuh", header)):
+        with open(os.path.join(build.CSRC, path)) as f:
+            src += f.read() + "\n"
     consts: Dict[str, int] = {}
-    for name, expr in re.findall(r"^#define (SC_\w+) ([^\n/]+)", src, re.M):
+    for name, expr in re.findall(r"^#define ((?:SC|TC)_\w+) ([^\n/]+)",
+                                 src, re.M):
         terms = [t.strip() for t in expr.split("*")]
         if all(t.isdigit() or t.startswith("0x") or t in consts for t in terms):
             consts[name] = int(np.prod([consts[t] if t in consts else int(t, 0)
@@ -111,10 +131,7 @@ def table_layout(fields_macro: str = "SUBSTEP_MODEL_FIELDS"
                              else int(t) for t in size.split("*")]))
             ctype = ctype * n
         fields.append((name, ctype))
-
-    name = {"SUBSTEP_MODEL_FIELDS": "SubstepModel",
-            "SUBSTEP_GROUND_FIELDS": "SubstepGround"}[fields_macro]
-    return consts, type(name, (ctypes.Structure,), {"_fields_": fields})
+    return consts, type(struct, (ctypes.Structure,), {"_fields_": fields})
 
 
 def substep_table(model: Model, dt: float) -> ctypes.Structure:
@@ -316,6 +333,10 @@ def cuda_library() -> Tuple[ctypes.CDLL, "build.BuiltLibrary"]:
             table_layout("SUBSTEP_GROUND_FIELDS")[1]):
         raise RuntimeError("SubstepGround layout differs between the CUDA "
                            "library and its Python mirror")
+    if lib.tracking_cost_size() != ctypes.sizeof(
+            table_layout("TRACKING_COST_FIELDS")[1]):
+        raise RuntimeError("TrackingCost layout differs between the CUDA "
+                           "library and its Python mirror")
     return lib, built
 
 
@@ -343,6 +364,11 @@ def load_library(path: str) -> ctypes.CDLL:
     lib.exact_plant_launch.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.exact_plant_launch.restype = ctypes.c_int
+    lib.tracking_cost_size.argtypes = []
+    lib.tracking_cost_size.restype = ctypes.c_int
+    lib.tracking_cost_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.tracking_cost_launch.restype = ctypes.c_int
     return lib
 
 
@@ -539,6 +565,79 @@ class ExactPlant:
                                f"error {rc}")
         PLANT_LAUNCHES[plant_launch_key(K, self.n_substeps)] += 1
         return qpos_out, qvel_out
+
+
+def tracking_cost_table(model: Model, params,
+                        home_joint_qpos) -> ctypes.Structure:
+    """The table of ``csrc/tracking_cost.cuh`` (``TrackingCost``) for
+    ``solvers.costs.tracking_cost(model, params, home_joint_qpos)``: the
+    weights and targets of ``params`` (a ``TrackingCostParams``) and the
+    home joints, as float32.  Raises where the home joints are not the
+    model's nq - 7 or a size exceeds ``substep_core.cuh``'s maximums."""
+    c, TrackingCost = table_layout("TRACKING_COST_FIELDS")
+    home = torch.as_tensor(home_joint_qpos).detach().reshape(-1).cpu()
+    if home.numel() != model.nq - 7:
+        raise ValueError(f"home_joint_qpos has {home.numel()} entries; the "
+                         f"model has nq - 7 = {model.nq - 7} joints")
+    if model.nq > c["SC_NQ_MAX"] or model.nu > c["SC_NU_MAX"]:
+        raise ValueError(f"model nq={model.nq}, nu={model.nu} exceeds "
+                         "SC_NQ_MAX / SC_NU_MAX of csrc/substep_core.cuh")
+    t = TrackingCost()
+    t.magic, t.nq, t.nv, t.nu = c["TC_MAGIC"], model.nq, model.nv, model.nu
+    for name in ("w_vel", "w_yaw_rate", "w_height", "w_upright",
+                 "w_joint_posture", "w_ctrl_rate", "w_lateral",
+                 "desired_yaw_rate", "target_height"):
+        setattr(t, name, getattr(params, name))  # rounded to float32
+    t.desired_vel[:2] = params.desired_vel_xy
+    t.home_j[:home.numel()] = home.to(torch.float32).tolist()
+    return t
+
+
+def cost_launch_key(L: int) -> str:
+    return f"tracking_cost L={L}"
+
+
+class TrackingCostKernel:
+    """``cost(qpos (nq,L), qvel (nv,L), ctrl (nu,L), prev (nu,L), disc,
+    total=None) -> total (L,)``: one launch of ``rollout_tracking_cost``
+    that computes the step cost of ``costs.tracking_cost(model, params,
+    home_joint_qpos)`` in every lane from the substep kernels' row layout,
+    times ``disc``, into a new total (``total`` None) or added to
+    ``total`` in place, which it returns.  As the op path computes
+    ``cost(state, ctrl, prev) * disc`` and ``total + c`` (on the card, in
+    the order of PyTorch's reductions there).  CUDA only: on the CPU the
+    rollouts call the cost's closure.  Launches go to
+    :data:`COST_LAUNCHES`."""
+
+    def __init__(self, model: Model, params, home_joint_qpos, device):
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"{ROLLOUT_COST} runs on a CUDA device, not "
+                             f"{self.device}")
+        self.nq, self.nv, self.nu = model.nq, model.nv, model.nu
+        self._table = tracking_cost_table(model, params, home_joint_qpos)
+        self._lib, _ = cuda_library()
+
+    def __call__(self, qpos, qvel, ctrl, prev, disc: float, total=None):
+        L = _check_rows(self.device, (("qpos", qpos, self.nq),
+                                      ("qvel", qvel, self.nv),
+                                      ("ctrl", ctrl, self.nu),
+                                      ("prev", prev, self.nu)))
+        accumulate = total is not None
+        if total is None:
+            total = torch.empty(L, dtype=torch.float32, device=self.device)
+        elif total.shape != (L,) or not total.is_contiguous():
+            raise ValueError(f"total must be a contiguous ({L},) tensor")
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = self._lib.tracking_cost_launch(
+            ctypes.byref(self._table), qpos.data_ptr(), qvel.data_ptr(),
+            ctrl.data_ptr(), prev.data_ptr(), total.data_ptr(), L,
+            float(disc), int(accumulate), stream)
+        if rc != 0:
+            raise RuntimeError(f"{ROLLOUT_COST} kernel launch failed: CUDA "
+                               f"error {rc}")
+        COST_LAUNCHES[cost_launch_key(L)] += 1
+        return total
 
 
 def build_cuda_substep(model: Model, dt: float, n_substeps: int = 1,

@@ -53,7 +53,13 @@ def _sq_sum(x: torch.Tensor) -> torch.Tensor:
 
 def tracking_cost(model, params: TrackingCostParams, home_joint_qpos):
     """Returns step_cost(state, ctrl, prev_ctrl) for velocity-tracking
-    locomotion MPC."""
+    locomotion MPC.  The closure carries ``tracking = (params,
+    home_joint_qpos)``, its own constants, by which the MPPI rollouts on
+    the card pick the hand-written kernel that computes it
+    (``ops.cuda_step.TrackingCostKernel``).  A wrapper around the closure
+    (a lambda, ``functools.partial``, an adapter) drops the tag, and the
+    rollouts then run the closure's torch ops: ``COST_LAUNCHES`` reading 0
+    on a solve shows it."""
     desired = _const(model, params.desired_vel_xy)
     home_j = _const(model, home_joint_qpos)
 
@@ -70,6 +76,7 @@ def tracking_cost(model, params: TrackingCostParams, home_joint_qpos):
         c_lat = params.w_lateral * torch.square(qvel[..., 1])
         return c_vel + c_yaw + c_h + c_up + c_post + c_rate + c_lat
 
+    step_cost.tracking = (params, home_j)
     return step_cost
 
 

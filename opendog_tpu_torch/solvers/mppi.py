@@ -12,7 +12,9 @@ rollout engines, named after what runs them
 
 * ``engine="kernel"`` (JAX ``"pallas"``): the substep kernel, one launch
   per control step for all K rollouts (``rollout_costs_pallas``); on a
-  terrain the rollouts contact local tangent planes.
+  terrain the rollouts contact local tangent planes.  On CUDA the tracking
+  cost (``costs.tracking_cost``, ``standing_cost``) is a kernel of its own
+  too, one launch per control step (:func:`takes_cost_kernel`).
 * ``engine="ops"`` (JAX ``"xla"``, the JAX default): the op-graph step
   ``physics.dynamics.step`` over all K rollouts at once, with exact
   bilinear terrain contact and static boxes (the Go1 ``jump`` and
@@ -44,7 +46,7 @@ from typing import Callable, Optional
 import torch
 
 from ..device import resolve_device, use_full_fp32
-from ..ops.cuda_step import build_cuda_substep
+from ..ops.cuda_step import TrackingCostKernel, build_cuda_substep
 from ..parallel import collectives
 from ..physics import State, Terrain, dynamics
 from ..utils.profiling import span
@@ -85,6 +87,19 @@ def init_state(model, config: MPPIConfig, key_name: str = "home",
     if scenarios is not None:
         nominal = nominal[None].repeat(scenarios, 1, 1)
     return MPPIState(nominal=nominal)
+
+
+def takes_cost_kernel(step_cost: Callable, with_command: bool,
+                      device) -> bool:
+    """True where the rollouts on the substep kernel compute ``step_cost``
+    with the tracking cost's own kernel (``ops.cuda_step.
+    TrackingCostKernel``, one launch a control step): the cost says it is
+    ``costs.tracking_cost``'s (its ``tracking`` tag), the solver binds no
+    command, and the device is CUDA.  Every other cost (the trot costs, a
+    command-bound cost, any callable, a wrapper around the tracking cost's
+    closure) runs its torch ops on the carry."""
+    return (getattr(step_cost, "tracking", None) is not None
+            and not with_command and torch.device(device).type == "cuda")
 
 
 def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
@@ -135,6 +150,10 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
         psub = build_cuda_substep(model, dt, n_substeps=config.n_substeps,
                                   device=device, with_plane=with_plane,
                                   with_payload=with_payload)
+        cost_kernel = None
+        if takes_cost_kernel(step_cost, with_command, device):
+            cost_kernel = TrackingCostKernel(model, *step_cost.tracking,
+                                             device)
     else:
         rollout_model = model.replace(timestep=dt)
 
@@ -168,7 +187,8 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
     def rollout_costs_kernel(qpos, qvel, time, candidates, payload,
                              command):
         """(S K,) total cost of every lane's plan: carry in the (rows, S K)
-        layout, one kernel launch per control step."""
+        layout, one kernel launch per control step (and one of the cost
+        kernel, where there is one)."""
         L = candidates.shape[0]
         cost_fn = bind_cost(command)
         qp = lanes(qpos).T.contiguous()
@@ -187,14 +207,20 @@ def _make_core(model, step_cost: Callable, config: MPPIConfig, device,
         for h in range(H):
             ctrl = candidates[:, h]
             qp, qv = psub(qp, qv, ctrl_rows[h], **extra)
-            t = t + dt_tick
-            st = State(qpos=qp.T, qvel=qv.T, time=t)
-            c = cost_fn(st, ctrl, prev_ctrl) * disc
-            total = c if total is None else total + c
+            if cost_kernel is None or terminal_cost is not None:
+                t = t + dt_tick
+            if cost_kernel is not None:
+                total = cost_kernel(qp, qv, ctrl_rows[h],
+                                    ctrl_rows[max(h - 1, 0)], disc, total)
+            else:
+                st = State(qpos=qp.T, qvel=qv.T, time=t)
+                c = cost_fn(st, ctrl, prev_ctrl) * disc
+                total = c if total is None else total + c
             prev_ctrl = ctrl
             disc = disc * config.gamma
         if terminal_cost is not None:
-            total = total + terminal_cost(st)
+            total = total + terminal_cost(State(qpos=qp.T, qvel=qv.T,
+                                                time=t))
         return total
 
     def rollout_costs_ops(qpos, qvel, time, candidates, payload, command):

@@ -46,6 +46,10 @@ CHIP_PEAKS = {
 # substep_kernel.cu) and the TPU kernel it replaces, for the kernels' rows
 SUBSTEP_SOURCE = "opendog_tpu_torch/csrc/substep_warp.cuh"
 SUBSTEP_REPLACES = "opendog_tpu/ops/pallas_step.py:115"
+# the rollouts' tracking cost (rollout_tracking_cost) and the step cost it
+# computes, for its rows
+COST_SOURCE = "opendog_tpu_torch/csrc/tracking_cost.cuh"
+COST_REPLACES = "opendog_tpu/solvers/costs.py:37"
 
 # the JAX package's weights (its ``_ELEMENTWISE_1`` / ``_ELEMENTWISE_N``),
 # keyed by the aten op that computes each primitive
@@ -194,6 +198,37 @@ def substep_row(name: str, launches: int, max_abs_err: float, ms: float,
     return {"name": name, "route": "cuda", "source": SUBSTEP_SOURCE,
             "replaces": SUBSTEP_REPLACES, "launches": int(launches),
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+def tracking_cost_bound(model, lanes: int, chip: str = "h100"):
+    """(bound_ms, bound_by, ops, nbytes) of one launch of the rollouts'
+    tracking-cost kernel over ``lanes`` lanes: the larger of its bytes
+    (qpos rows 2 .. nq-1, qvel rows 0, 1 and 5, the control and the
+    previous control read, the total read and written; float32) over the
+    chip's memory rate and its operations over its float32 peak, the
+    transcendentals weighted 8 as :func:`count_flops` weights them (roll
+    and pitch 17 and two transcendentals, the velocity, yaw-rate, height,
+    upright and lateral terms 18, the posture and rate sums 3 a term and
+    their weights, the sum of the seven terms, the discount and the
+    total)."""
+    nbytes = 4 * lanes * ((model.nq - 2) + 3 + 2 * model.nu + 2)
+    ops = lanes * (17 + 2 * 8 + 18 + 3 * (model.nq - 7) + 1 + 3 * model.nu
+                   + 1 + 6 + 2)
+    peaks = CHIP_PEAKS[chip]
+    t_ops, t_bytes = ops / peaks["fp32_flops"], nbytes / peaks["hbm_bytes"]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def cost_row(name: str, launches: int, max_abs_err: float, ms: float,
+             op_ms: float, bound) -> Dict[str, Any]:
+    """The tracking-cost kernel's row of a ``kernels`` line: ``bound`` is
+    :func:`tracking_cost_bound`'s, ``op_ms`` the op path's step (the plain
+    version); no library call computes the cost."""
+    return {"name": name, "route": "cuda", "source": COST_SOURCE,
+            "replaces": COST_REPLACES, "launches": int(launches),
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": op_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 

@@ -130,6 +130,74 @@ def test_mode_kernel_matches_plain_on_card(cuda_device, robot, K, dt, n,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("robot,K,with_plane", [
+    ("opendog", 256, True), ("opendog", 4096, True),
+    ("opendog", 256, "per_geom"), ("opendog", 4096, "per_geom"),
+    ("go1", 256, False)])
+def test_cost_kernel_rollout_total_matches_op_path(cuda_device, robot, K,
+                                                   with_plane):
+    """The rollouts' tracking-cost kernel against the op path it replaces
+    (``costs.standing_cost``'s closure on the carry, times the discount,
+    added up) over 25 control steps of K3 or K4 from the perturbed home
+    keyframe on rough terrain (OpenDOG, 8 controls), or of K1 on flat
+    ground (Go1, 12 controls: the other widths of the sums), gamma 0.9:
+    every lane's total bit for bit, and one launch a step in
+    COST_LAUNCHES."""
+    from opendog_tpu_torch.physics import State, dynamics
+    from opendog_tpu_torch.physics import terrain as terrain_lib
+    from opendog_tpu_torch.solvers import costs
+    if robot == "go1":
+        m = load_go1("flat", device=cuda_device)
+        h0, height = 0.0, 0.265
+    else:
+        m = load_opendog("terrain", device=cuda_device)
+        terr = terrain_lib.generate_terrain(
+            m, torch.Generator().manual_seed(0)).to(cuda_device)
+        h0 = float(dynamics._terrain_height_normal(
+            m, terr, torch.zeros(1, 2, device=cuda_device))[0][0])
+        height = 0.0694 + h0
+    cost = costs.standing_cost(m, height, m.key_qpos[0, 7:])
+    kernel = cuda_step.TrackingCostKernel(m, *cost.tracking, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    qpos = m.key_qpos[0][None].repeat(K, 1)
+    qpos[:, 2] += h0
+    qpos[:, 7:] += 0.03 * torch.randn(K, m.nq - 7, device=cuda_device,
+                                      generator=g)
+    extra = {}
+    if with_plane == "per_geom":
+        planes = dynamics.geom_local_planes(m, terr, qpos).reshape(K, -1)
+        extra["plane"] = planes.T.contiguous()
+    elif with_plane:
+        h, n = dynamics._terrain_height_normal(m, terr, qpos[:, :2])
+        p0 = torch.stack([qpos[:, 0], qpos[:, 1], h], dim=-1)
+        planes = torch.cat([n, torch.sum(n * p0, dim=-1)[:, None]], dim=-1)
+        extra["plane"] = planes.T.contiguous()
+    rng = m.actuator_ctrlrange
+    cand = torch.clamp(m.key_ctrl[0] + 0.08 * torch.randn(
+        K, 25, m.nu, device=cuda_device, generator=g), rng[:, 0], rng[:, 1])
+    rows = cand.permute(1, 2, 0).contiguous()
+    psub = cuda_step.build_cuda_substep(m, 0.01, 2, device=cuda_device,
+                                        with_plane=with_plane)
+    qp, qv = qpos.T.contiguous(), torch.zeros(m.nv, K, device=cuda_device)
+    key = cuda_step.cost_launch_key(K)
+    before = cuda_step.COST_LAUNCHES[key]
+    want = got = None
+    disc = 1.0
+    for h in range(25):
+        qp, qv = psub(qp, qv, rows[h], **extra)
+        st = State(qpos=qp.T, qvel=qv.T, time=torch.zeros(K,
+                                                          device=cuda_device))
+        c = cost(st, cand[:, h], cand[:, max(h - 1, 0)]) * disc
+        want = c if want is None else want + c
+        got = kernel(qp, qv, rows[h], rows[max(h - 1, 0)], disc, got)
+        disc = disc * 0.9
+    torch.cuda.synchronize()
+    assert cuda_step.COST_LAUNCHES[key] == before + 25
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["terrain", "box", "edge"])
 @pytest.mark.parametrize("K", [1, 5])
 def test_exact_plant_matches_plain_on_card(cuda_device, case, K):
@@ -318,7 +386,8 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     same kernels), and each replay counts one tick's launches: 25 rollout
     launches and one plant launch; on the exact plant (bench 2c:
     trunk-plane rollouts) the plant's launch is the exact plant kernel's,
-    one a tick in PLANT_LAUNCHES."""
+    one a tick in PLANT_LAUNCHES; on the terrain paths (the standing cost)
+    25 launches of the cost kernel in COST_LAUNCHES, none on Go1's trot."""
     from opendog_tpu_torch.physics import make_state
     from opendog_tpu_torch.solvers import graph_tick, make_mpc
     if path == "flat":
@@ -350,10 +419,16 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
     else:
         want_launches[cuda_step.launch_key(
             1, 10, False if path == "flat" else "per_geom")] = 1
+    # the standing cost of the terrain paths runs its own kernel, one launch
+    # a control step; the trot cost keeps its torch ops
+    want_cost = ({} if path == "flat" else
+                 {cuda_step.cost_launch_key(256): 25})
     assert dict(gtick.graph.launches) == want_launches
     assert dict(gtick.graph.count_of(cuda_step.PLANT_LAUNCHES)) == want_plant
+    assert dict(gtick.graph.count_of(cuda_step.COST_LAUNCHES)) == want_cost
     cuda_step.LAUNCHES.clear()
     cuda_step.PLANT_LAUNCHES.clear()
+    cuda_step.COST_LAUNCHES.clear()
     carry = carry0
     for n, want in zip(normals, eager):
         carry, out = gtick(carry, n)
@@ -365,6 +440,8 @@ def test_graph_tick_equals_eager_tick(cuda_device, path):
         k: v * len(normals) for k, v in gtick.graph.launches.items()}
     assert dict(cuda_step.PLANT_LAUNCHES) == {
         k: v * len(normals) for k, v in want_plant.items()}
+    assert dict(cuda_step.COST_LAUNCHES) == {
+        k: v * len(normals) for k, v in want_cost.items()}
 
 
 @pytest.mark.gpu
